@@ -1,7 +1,7 @@
 // Native image codec: PGM/PPM (binary + ascii), PFM (float), BMP (8/24/32),
 // PNG (8-bit gray/RGB/RGBA/palette, non-interlaced, via zlib inflate).
 //
-// TPU-native replacement for the IO role OpenCV plays in the reference
+// Native replacement for the IO role OpenCV plays in the reference
 // (`cv::imread` at /root/reference/src/CameraStereoVision.cpp:16; the
 // framework contract asks for a native runtime around the XLA compute path).
 // Exposed through the C API in loader.cpp; Python binds via ctypes

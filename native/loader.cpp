@@ -4,8 +4,8 @@
 // does sequential single-threaded imread of 25 views per run
 // (/root/reference/src/CameraStereoVision.cpp:14-19); here a worker pool
 // decodes ahead of the consumer into a bounded in-order queue so host decode
-// overlaps device compute (the classic input-pipeline overlap TPU step time
-// depends on). Python binds via ctypes
+// overlaps device compute (the classic input-pipeline overlap device step
+// time depends on). Python binds via ctypes
 // (stereovisionarray_tpu/datasets/native_loader.py) and copies each frame
 // straight into a numpy array that jax.device_put ships to HBM.
 //

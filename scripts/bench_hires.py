@@ -1,115 +1,71 @@
-"""High-resolution two-view scaling artifact — BENCH_HIRES_r05.json.
+"""High-resolution two-view benchmark on the GPU — prints ONE JSON line.
 
 The reference's working class is 540x768 (0.5x downscaled renders,
 ``/root/reference/src/CameraStereoVision.cpp:18``); production arrays ship
-full sensor readouts. This measures the flagship two-view pipeline at
-1080x1536 — 4x the pixels — to show the MP/s throughput HOLDS (or
-improves: bigger shapes amortize per-kernel fixed work and fill the
-540-row block schedule better):
+full sensor readouts. This times the two-view pipeline at 1080x1536:
 
-  - flat 8-path SGM at D=128 (the full-res disparity range matching
-    540x768/D=64 geometry): MP/s vs the bench.py 540x768/D=64 number;
-  - cascade (models/cascade.py) vs flat at D=256 — the large-range regime
+  - flat 8-path SGM at D=128 and D=256;
+  - the cascade (models/cascade.py) at D=256 — the large-range regime
     where the reference brackets rays per pixel.
 
-Timing: fat two-K slope (frames per dispatch 1 vs 4), scalar-fenced,
-salted — the bench.py method with the dispatch-latency lesson applied
-(CLAUDE.md round-4 measurement trap).
+Each program is warmed up, then ``ITERS`` calls are timed up to
+``block_until_ready``; medians are reported with the card's name and
+power limit. Exits non-zero without a GPU.
+
+Usage: python scripts/bench_hires.py
 """
 
 import json
 import os
-import statistics
 import sys
-import time
 
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_CACHE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
-)
 
 H, W = 1080, 1536
-REPEATS = 7
-K_SMALL, K_BIG = 1, 4
+ITERS = 7
 
 
 def main():
     import jax
-
-    jax.config.update("jax_compilation_cache_dir", _CACHE_DIR)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     import jax.numpy as jnp
 
+    from stereovisionarray_tpu.compile_cache import enable_compile_cache
     from stereovisionarray_tpu.config import CostConfig, SGMConfig
     from stereovisionarray_tpu.models.cascade import cascade_two_view_disparity
     from stereovisionarray_tpu.models.two_view import two_view_disparity
+    from stereovisionarray_tpu.utils.profiling import (
+        card_label, median_ms, require_gpu, steady_times,
+    )
 
+    enable_compile_cache()
+    dev = require_gpu()
     sgm = SGMConfig(p1=8.0, p2=96.0, num_paths=8, adaptive_p2=True)
 
-    def flat_one(d):
-        cost = CostConfig(num_disparities=d, census_window=(7, 9), dtype="int8")
+    def cost(d):
+        return CostConfig(num_disparities=d, census_window=(7, 9), dtype="int8")
 
-        def one(pair):
-            return two_view_disparity(pair[0], pair[1], cost, sgm).disparity
-
-        return one
-
-    def casc_one(d):
-        cost = CostConfig(num_disparities=d, census_window=(7, 9), dtype="int8")
-
-        def one(pair):
-            return cascade_two_view_disparity(
-                pair[0], pair[1], cost, sgm,
-                coarse_factor=4, fine_disparities=32, band_step=8,
-            ).disparity
-
-        return one
-
-    def measure(one, label):
-        def batcher(k):
-            @jax.jit
-            def run(ls, rs):
-                return jnp.sum(jax.lax.map(one, (ls, rs)))
-
-            rng = np.random.default_rng(k)
-            base = rng.uniform(0.0, 255.0, (k, H, W + 64)).astype(np.float32)
-            return run, (
-                jax.device_put(jnp.asarray(base[..., :W])),
-                jax.device_put(jnp.asarray(base[..., 64:])),
-            )
-
-        rs, a_s = batcher(K_SMALL)
-        rb, a_b = batcher(K_BIG)
-        for w in range(3):
-            float(rs(a_s[0] + 0.1 * w, a_s[1]))
-            float(rb(a_b[0] + 0.1 * w, a_b[1]))
-        ts, tb = [], []
-        for i in range(REPEATS):
-            t0 = time.perf_counter()
-            float(rs(a_s[0] + 1 + 0.05 * i, a_s[1]))
-            ts.append(time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            float(rb(a_b[0] + 1.02 + 0.05 * i, a_b[1]))
-            tb.append(time.perf_counter() - t0)
-        per = (statistics.median(tb) - statistics.median(ts)) / (K_BIG - K_SMALL)
-        print(label, round(per * 1e3, 3), "ms/frame", flush=True)
-        return per
-
-    report = {"shape_hw": [H, W], "method": f"K={K_SMALL}/{K_BIG} fat slope"}
-    per = measure(flat_one(128), "flat D=128")
-    report["flat_d128_ms_per_frame"] = round(per * 1e3, 3)
-    report["flat_d128_mps"] = round(H * W / per / 1e6, 1)
-    per_f = measure(flat_one(256), "flat D=256")
-    report["flat_d256_ms_per_frame"] = round(per_f * 1e3, 3)
-    per_c = measure(casc_one(256), "cascade D=256")
-    report["cascade_d256_ms_per_frame"] = round(per_c * 1e3, 3)
-    if per_c > 0:
-        report["cascade_d256_speedup"] = round(per_f / per_c, 2)
-
-    with open("BENCH_HIRES_r05.json", "w") as f:
-        json.dump(report, f, indent=1, sort_keys=True)
+    programs = {
+        "flat_d128": lambda l, r: two_view_disparity(l, r, cost(128), sgm).disparity,
+        "flat_d256": lambda l, r: two_view_disparity(l, r, cost(256), sgm).disparity,
+        "cascade_d256": lambda l, r: cascade_two_view_disparity(
+            l, r, cost(256), sgm, coarse_factor=4, fine_disparities=32,
+            band_step=8).disparity,
+    }
+    base = np.random.default_rng(0).uniform(0.0, 255.0, (H, W + 64)).astype(np.float32)
+    left = jax.device_put(jnp.asarray(base[:, :W]))
+    right = jax.device_put(jnp.asarray(base[:, 64:]))
+    report = {"shape_hw": [H, W], "samples": ITERS}
+    for name, fn in programs.items():
+        first_s, times = steady_times(jax.jit(fn), left, right, iters=ITERS)
+        ms = median_ms(times)
+        report[f"{name}_ms_per_frame_median"] = ms
+        report[f"{name}_first_call_s"] = first_s
+        report[f"{name}_mps"] = H * W / (ms * 1e-3) / 1e6
+    report["card"] = card_label()
+    report["device"] = {"platform": dev.platform, "kind": dev.device_kind,
+                        "count": len(jax.devices())}
     print(json.dumps(report, sort_keys=True))
 
 

@@ -20,7 +20,7 @@ Running this script regenerates data/eval_scene/ deterministically and
 writes EVAL_r03.json with bad-2.0 / EPE / density (the reference's golden
 pattern, /root/reference/src/functions.cpp:323-329,348-354).
 
-Usage: python scripts/make_eval_fixture.py [--platform cpu|tpu]
+Usage: python scripts/make_eval_fixture.py [--platform cpu|gpu]
 """
 
 import argparse
@@ -114,7 +114,7 @@ def evaluate():
     import jax
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--platform", default="cpu", choices=["cpu", "tpu"])
+    parser.add_argument("--platform", default="cpu", choices=["cpu", "gpu"])
     args = parser.parse_args()
     if args.platform == "cpu":
         jax.config.update("jax_platforms", "cpu")

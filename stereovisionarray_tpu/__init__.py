@@ -1,14 +1,15 @@
-"""stereovisionarray_tpu — a TPU-native multi-view stereo / SfM engine.
+"""stereovisionarray_tpu — a multi-view stereo / SfM engine in JAX.
 
-A brand-new JAX / XLA / Pallas / pjit framework with the capabilities of the
+A brand-new JAX / XLA / Pallas framework with the capabilities of the
 reference C++ project Nahuel-M/StereoVisionArray (5x5 camera-array stereo:
 epipolar block matching, disparity->depth, multi-view warp refinement,
-face-ROI gating, golden-reference evaluation), redesigned TPU-first:
+face-ROI gating, golden-reference evaluation), redesigned as whole-array
+device programs:
 
  - batched pinhole camera geometry (``geometry/``) replaces the scalar
    translation-only ``Camera`` class (reference ``src/Camera.cpp:15-33``);
  - census / Birchfield-Tomasi cost volumes + 8-path semi-global matching as
-   vectorized XLA scans and Pallas TPU kernels (``ops/``) replace the
+   vectorized XLA scans and a Triton kernel on NVIDIA GPUs (``ops/``) replace the
    per-pixel Bresenham SAD loop (reference ``src/CameraStereoVision.cpp:49-95``);
  - N-view plane-sweep fusion (``models/plane_sweep.py``) generalizes the
    pairwise warp refinement (reference ``src/functions.cpp:11-103``);

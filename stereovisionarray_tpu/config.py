@@ -45,9 +45,11 @@ class CostConfig:
     num_disparities: int = 128
     bt_weight: float = 0.25  # Birchfield-Tomasi term weight vs census hamming
     bt_clip: float = 32.0
-    # int16 = fixed-point costs (scale 4): exact integer SGM sums, HALF the
-    # HBM traffic — 2.3x measured on the TPU Pallas path; the XLA path
-    # falls back to float32 automatically (models/two_view.py)
+    # cost volume dtype. int16 = fixed-point costs (scale 4), int8 = whole
+    # census bits (scale 1; widens to int16 when the window overflows it):
+    # half or a quarter of the bytes of float32, and exact integer SGM sums
+    # (the Triton kernel carries int32; the XLA scan computes the same
+    # integers in float32). "float32" keeps unquantized costs.
     dtype: str = "int16"
 
 
@@ -100,19 +102,13 @@ class PlaneSweepConfig:
     z_near: float = 0.55
     z_far: float = 1.1
     topology: str = "to_center"  # PairTopology value
-    # caller asserts integer-valued [0, 255] sources (decoded 8-bit
-    # frames): the Pallas sweep's bf16 warp is then EXACT with a single
-    # matmul arm — half its MXU work. False (default) keeps the hi/lo
-    # split, exact for any <= 16-significant-bit data.
-    sources_8bit: bool = False
     fusion: str = "topk_mean"  # 'mean' | 'topk_mean' | 'min'
     topk: int = 6
     cost: str = "census"  # 'census' | 'sad' | 'zncc'
     patch: int = 5  # local window for sad/zncc
     # planes vmapped together per lax.map step: bounds the warp-stack
     # intermediate at (plane_chunk, S, H, W) while amortizing per-kernel
-    # dispatch (plane-at-a-time measured 50 ms/frame-set at 5x5x270x360x128
-    # on a v5e; chunked is several times faster)
+    # dispatch (not yet tuned on the GPU)
     plane_chunk: int = 32
     # coarse-to-fine cascade (models/cascade_sweep.py): coarse pass at
     # 1/cascade_coarse_factor resolution positions a per-pixel
@@ -120,10 +116,9 @@ class PlaneSweepConfig:
     # cascade_band_step planes); translation-only rigs only. The fine
     # window must be wide enough to absorb coarse error + per-view band
     # misalignment — below ~num_planes/3 the band-boundary error rate
-    # climbs steeply (tests/test_cascade_sweep.py). factor 4 both times
-    # FASTER and scores better bad-2 than factor 2 at the bench config
-    # (the speckle filter catches the coarser pass's blunders;
-    # probe_cascade_stages2.py)
+    # climbs steeply (tests/test_cascade_sweep.py). Factor 4 scores better
+    # bad-2 than factor 2 (the speckle filter catches the coarser pass's
+    # blunders)
     cascade: bool = False
     cascade_coarse_factor: int = 4
     cascade_fine_planes: int = 48

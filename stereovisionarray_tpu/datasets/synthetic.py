@@ -161,7 +161,7 @@ def render_view(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Render one camera: returns (image (H,W) float32 [0,255], depth (H,W)).
 
-    Host-side numpy: dataset generation is I/O-side, not the TPU hot path."""
+    Host-side numpy: dataset generation is I/O-side, not the device hot path."""
     h, w = resolution
     cam = cameras[index]
     fx = float(cam.fx)

@@ -13,7 +13,12 @@ from __future__ import annotations
 
 from typing import Optional
 
+import jax
 import jax.numpy as jnp
+
+# float32 matmuls pinned to full precision: a GPU may otherwise run them in
+# TF32 (about 3 decimal digits)
+_HI = jax.lax.Precision.HIGHEST
 
 
 def _masked(values: jnp.ndarray, mask: Optional[jnp.ndarray]) -> tuple[jnp.ndarray, jnp.ndarray]:
@@ -84,17 +89,17 @@ def absolute_trajectory_error(
         mu_g = centers_gt.mean(axis=0)
         e = centers_est - mu_e
         g = centers_gt - mu_g
-        cov = e.T @ g
+        cov = jnp.matmul(e.T, g, precision=_HI)
         u, s, vt = jnp.linalg.svd(cov)
-        d = jnp.sign(jnp.linalg.det(vt.T @ u.T))
+        d = jnp.sign(jnp.linalg.det(jnp.matmul(vt.T, u.T, precision=_HI)))
         D = jnp.diag(jnp.array([1.0, 1.0, d]))
-        R = vt.T @ D @ u.T
+        R = jnp.linalg.multi_dot([vt.T, D, u.T], precision=_HI)
         if align_scale:
             var_e = jnp.sum(e * e)
             scale = jnp.sum(s * jnp.diag(D)) / jnp.maximum(var_e, 1e-12)
         else:
             scale = 1.0
-        aligned = scale * (R @ e.T).T + mu_g
+        aligned = scale * jnp.matmul(R, e.T, precision=_HI).T + mu_g
     else:
         aligned = centers_est
     return jnp.sqrt(jnp.mean(jnp.sum((aligned - centers_gt) ** 2, axis=-1)))

@@ -1,4 +1,4 @@
-"""Batched pinhole camera model — the TPU-native generalization of the
+"""Batched pinhole camera model — the batched generalization of the
 reference's scalar translation-only ``Camera`` class.
 
 The reference camera (``/root/reference/include/Camera.h:6-21``,
@@ -6,9 +6,8 @@ The reference camera (``/root/reference/include/Camera.h:6-21``,
 zero-rotation cameras: ``pixel = (P.xy - C.xy) * f / ((P.z - C.z) * pixel_size)``
 and ``inv_project(pixel) = normalize(u*s, v*s, f)``. Here that becomes the
 special case ``R = I`` of a full intrinsics+extrinsics pinhole model, stored as
-struct-of-arrays so every operation is batched over the camera axis and maps
-onto the TPU VPU/MXU via plain ``jax.numpy`` (no per-camera Python objects, no
-scalar loops).
+struct-of-arrays so every operation is batched over the camera axis in plain
+``jax.numpy`` (no per-camera Python objects, no scalar loops).
 
 Conventions
 -----------
@@ -23,18 +22,20 @@ Conventions
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 # Geometry matmuls are tiny (3x3) but precision-critical: pin them to full
-# f32 so the TPU's bf16 matmul default cannot degrade pose/pixel accuracy.
+# f32 so a reduced-precision matmul default (TF32 on a GPU) cannot degrade
+# pose/pixel accuracy.
 _HI = jax.lax.Precision.HIGHEST
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class CameraArray:
     """A batch of N pinhole cameras as a JAX pytree (struct of arrays).
 

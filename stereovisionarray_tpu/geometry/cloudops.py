@@ -17,7 +17,7 @@ standard finishing passes every consumer expects:
 These run HOST-SIDE on numpy: their shapes are data-dependent (unique
 voxels), which XLA's static-shape model cannot express without padding to
 the worst case — and they sit after the device pipeline, on compacted
-clouds ~1000x smaller than the volumes the TPU chewed through.
+clouds ~1000x smaller than the device-side cost volumes.
 """
 
 from __future__ import annotations

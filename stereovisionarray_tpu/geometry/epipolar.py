@@ -1,10 +1,10 @@
-"""Epipolar candidate generation — the vectorized, TPU-native replacement of
+"""Epipolar candidate generation — the vectorized replacement of
 the reference's per-pixel Bresenham rasterization.
 
 The reference enumerates disparity candidates by projecting two points at
 0.5x and 1.0x along each pixel's ray and walking the integer segment between
-them with Bresenham (``/root/reference/src/CameraStereoVision.cpp:60-73``,
-``/root/reference/src/functions.cpp:253-321``). On TPU that becomes: sample D
+them with Bresenham (reference ``src/CameraStereoVision.cpp:60-73`` and
+``src/functions.cpp:253-321``). Here that becomes: sample D
 depth hypotheses (uniform in inverse depth), backproject + reproject the whole
 pixel grid at once, and bilinearly gather — no integer line walking, no
 per-pixel control flow, static shapes throughout.

@@ -66,7 +66,8 @@ def so3_exp(w: jnp.ndarray) -> jnp.ndarray:
     b = _one_minus_cos_over_t2(theta)
     W = _hat(w)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=w.dtype), W.shape)
-    return eye + a[..., None, None] * W + b[..., None, None] * (W @ W)
+    return eye + a[..., None, None] * W + b[..., None, None] * jnp.matmul(
+        W, W, precision=_HI)
 
 
 def so3_log(R: jnp.ndarray) -> jnp.ndarray:
@@ -105,8 +106,9 @@ def se3_exp(xi: jnp.ndarray):
     )
     W = _hat(w)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=xi.dtype), W.shape)
-    R = eye + a[..., None, None] * W + b[..., None, None] * (W @ W)
-    V = eye + b[..., None, None] * W + c[..., None, None] * (W @ W)
+    WW = jnp.matmul(W, W, precision=_HI)
+    R = eye + a[..., None, None] * W + b[..., None, None] * WW
+    V = eye + b[..., None, None] * W + c[..., None, None] * WW
     t = jnp.einsum("...ij,...j->...i", V, v, precision=_HI)
     return R, t
 
@@ -130,6 +132,7 @@ def se3_log(R: jnp.ndarray, t: jnp.ndarray) -> jnp.ndarray:
         1.0 / 12.0 + theta2 / 720.0 + theta2 * theta2 / 30240.0,
         (1.0 - a / (2.0 * jnp.maximum(b, _EPS))) / theta2_safe,
     )
-    V_inv = eye - 0.5 * W + coef[..., None, None] * (W @ W)
+    V_inv = eye - 0.5 * W + coef[..., None, None] * jnp.matmul(
+        W, W, precision=_HI)
     v = jnp.einsum("...ij,...j->...i", V_inv, t, precision=_HI)
     return jnp.concatenate([w, v], axis=-1)

@@ -1,4 +1,4 @@
-"""Point-cloud ⇄ depth-map converters — the TPU-native generalization of the
+"""Point-cloud ⇄ depth-map converters — the batched generalization of the
 reference's embryonic reconstruction API (`DepthMapToPoints3D` /
 `Points3DToDepthMap`, ``/root/reference/src/functions.cpp:118-146``).
 

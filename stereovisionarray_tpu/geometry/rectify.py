@@ -21,7 +21,12 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import jax
 import jax.numpy as jnp
+
+# float32 matmuls pinned to full precision: a GPU may otherwise run them in
+# TF32 (about 3 decimal digits)
+_HI = jax.lax.Precision.HIGHEST
 
 from stereovisionarray_tpu.geometry.camera import CameraArray
 from stereovisionarray_tpu.ops.warp import homography_warp
@@ -55,8 +60,8 @@ def rectify_pair(cameras: CameraArray, left: int, right: int) -> RectifiedPair:
     K_l, R_l, t_l = _camera_K_Rt(cameras, left)
     K_r, R_r, t_r = _camera_K_Rt(cameras, right)
     # camera centers: x_cam = R x + t -> C = -Rᵀ t
-    c_l = -R_l.T @ t_l
-    c_r = -R_r.T @ t_r
+    c_l = -jnp.matmul(R_l.T, t_l, precision=_HI)
+    c_r = -jnp.matmul(R_r.T, t_r, precision=_HI)
 
     # new x axis: the baseline (left -> right)
     b = c_r - c_l
@@ -74,7 +79,8 @@ def rectify_pair(cameras: CameraArray, left: int, right: int) -> RectifiedPair:
     # homography mapping NEW pixels to OLD pixels: inverse of old->new
     # old->new: K_new R_new R_oldᵀ K_old⁻¹ ; we return its inverse per view
     def new_to_old(K_old, R_old):
-        H_on = K_new @ R_new @ R_old.T @ jnp.linalg.inv(K_old)
+        H_on = jnp.linalg.multi_dot(
+            [K_new, R_new, R_old.T, jnp.linalg.inv(K_old)], precision=_HI)
         return jnp.linalg.inv(H_on)
 
     return RectifiedPair(

@@ -1,4 +1,4 @@
-"""End-to-end camera-array depth pipeline — the TPU-native `main()`.
+"""End-to-end camera-array depth pipeline — the reference's `main()` as one program.
 
 Capability parity with the reference driver
 (``/root/reference/src/CameraStereoVision.cpp:10-123``):
@@ -147,6 +147,7 @@ def array_depth_pipeline(
     use_roi: bool = False,
     mask: Optional[jnp.ndarray] = None,
     roi_mode: str = "face",
+    backend: str = "auto",
 ) -> ArrayPipelineOutput:
     """Run the full array pipeline on (N, H, W) grayscale images.
 
@@ -163,6 +164,7 @@ def array_depth_pipeline(
       roi_mode: "face" = NCC face detector with landmark convex-poly mask,
         Otsu-ellipse fallback (``roi.face.face_mask`` — the getFaceMask
         equivalent); "otsu" = foreground ellipse only.
+      backend: SGM backend of the sweep (``backend.py``).
     """
     n, h, w = images.shape
     ref_index, src_indices = reference_and_sources(cfg, n, ref_index)
@@ -216,8 +218,7 @@ def array_depth_pipeline(
             band_step=ps.cascade_band_step,
             band_offsets=band_offsets,
             mode=ps.cascade_mode,
-            # fine_shift_pad deliberately None: the tight pad measured
-            # ~20% SLOWER (probe_cascade_stages2.py, cascade_static_params)
+            backend=backend,
         )
     else:
         sweep = plane_sweep_depth(
@@ -229,14 +230,7 @@ def array_depth_pipeline(
             cfg.sgm,
             mask=mask,
             shift_pad=shift_pad,
-            # axis_flags deliberately NOT passed (ADVICE r2 asked to activate
-            # the sweep kernel's static-slice branches here via host-side
-            # flags; plumbed + parity-checked on device, then MEASURED: the
-            # flagged kernel is 51% SLOWER than the dynamic one-hot path —
-            # sweep_volume slope 7.68 vs 5.09 ms within one run,
-            # scripts/perf_array_stages.py sweep_volume_flagged. The "free"
-            # static row window costs Mosaic a per-plane relayout of the
-            # resident bf16 operands that the always-matmul form never pays.)
+            backend=backend,
         )
 
     # ---- multi-view photoconsistency refinement in disparity space ---- #

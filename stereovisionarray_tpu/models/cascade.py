@@ -3,9 +3,8 @@
 The reference bounds its search by bracketing each ray between 0.5x and
 1.0x depth and rasterizing that segment per pixel
 (``/root/reference/src/CameraStereoVision.cpp:60-73``) — a per-pixel
-data-dependent candidate list, which is exactly the control flow a TPU
-cannot express efficiently. The TPU-native generalization is a static
-two-level cascade:
+data-dependent candidate list. The array-program generalization is a
+static two-level cascade:
 
 1. **Coarse pass** — downsample both views by ``coarse_factor`` (area
    mean) and run the full fast pipeline with the disparity range scaled
@@ -25,22 +24,16 @@ slope-compensated coarse field. The round-4 band-quantized warp produced
 content seams every ``band_step/slope`` px on slanted surfaces, whose
 duplicated strips created systematic one-band-down false matches (bad-2
 1.25% vs flat 0.008% at D=256, ``EVAL_CASCADE_r04``; diagnosed in
-``scripts/probe_cascade_errors*.py``; seam-free band volumes still fail on
-the fine-index SAWTOOTH, ``scripts/probe_banded_volume.py``). A smooth
-warp has no seams and a ~constant fine-index field. Per-pixel smooth
-shifts are a gather — illegal on this toolchain — so the field is
-decomposed ``s*(x,y) = g(x) + r(x,y)`` (``scripts/probe_smooth_warp.py``):
+seam-free band volumes still fail on the fine-index sawtooth). A smooth
+warp has no seams and a ~constant fine-index field. The field is
+decomposed ``s*(x,y) = g(x) + r(x,y)``:
 
-- ``g`` (1D column field, any range): ONE MXU hat-matrix matmul — the
-  one-hot matmul warp is the only legal dynamic-shift mechanism
-  (``scripts/probe_matmul_warp.py``);
-- ``r`` (clamped to ±``SMOOTH_R``): a (2R+1)-tap hat-weight select-sum
-  chain (~0.14 ms/frame at 65 taps, ``scripts/probe_onehot_warp.py``;
-  225 taps would be 0.85 ms — the decomposition is the cost win); R is
-  sized for the 1/(1-g')-AMPLIFIED column deviation (the chain's anchor
-  moves with the residual);
-- the EXACT effective field ``s_eff(x) = r(x) + g(x - r(x))`` falls out
-  of applying the same hat weights to ``k + g(x - k)``, so the decode is
+- ``g`` (1D column field, any range): one hat-matrix matmul;
+- ``r`` (clamped to ±``SMOOTH_R``): a per-pixel bilinear sample
+  (``ops/hatsample.py``); R is sized for the 1/(1-g')-AMPLIFIED column
+  deviation (the sample's anchor moves with the residual);
+- the EXACT effective field ``s_eff(x) = r(x) + g(x - r(x))`` is ``g``
+  sampled with the same two bilinear weights, so the decode is
   consistent even where ``r`` clamps (clamping only costs coverage).
 
 Slope compensation: sampling ``s`` at the match position shrinks the
@@ -54,11 +47,7 @@ loss where ``|r|`` clamps); ``mode="band"`` remains as the fallback.
 ``band_step``, one-hot select over static shifts. Keeps its seam tail;
 retained for comparison and as the vertical-structure fallback.
 
-Measured at (540, 768, 256) on a v5e chip (``scripts/perf_cascade.py``,
-EVAL_CASCADE_r05, interleaved fat-spread protocol): smooth cascade
-1.71 ms/frame vs flat 8.89 — 5.2x — at bad-2 0.047% vs flat 0.008%
-(band mode was 157x flat's tail), with validity (0.994 vs 0.981), EPE
-(0.113 vs 0.157) and median error (0.092 vs 0.130) all BETTER than flat.
+Accuracy against the flat pipeline is checked by ``tests/test_cascade.py``.
 """
 
 from __future__ import annotations
@@ -86,15 +75,9 @@ from stereovisionarray_tpu.ops.wta import INVALID_DISPARITY
 
 __all__ = ["cascade_two_view_disparity", "CascadeOutput", "SMOOTH_R"]
 
-# residual-chain half-range: tap count is 2*SMOOTH_R+1. 44 was sized for
-# the 1/(1-g')-amplified column deviation under the r5-interim (7,9)
-# coarse field; with the scale-matched coarse window the residual never
-# reaches past 36 on the eval scene (R=36 and R=44 score identically).
-# Timing: once smooth_r was THREADED as a static arg (killing the
-# jit-cache trap) the properly interleaved A/B reads R36 1.889 vs R44
-# 1.911 ms/frame — the 0.44 ms "R effect" first measured across
-# processes was drift (scripts/probe_cascade_tuning.py radius). 36 kept:
-# equal accuracy, slightly cheaper, smaller VMEM window.
+# residual half-range: with the scale-matched coarse window the residual
+# never reaches past 36 px on the 540-row eval scene (R=36 and R=44 score
+# identically)
 SMOOTH_R = 36
 
 
@@ -119,9 +102,7 @@ from stereovisionarray_tpu.models.cascade_sweep import (  # noqa: E402
 def _select_shifted(values: jnp.ndarray, index: jnp.ndarray, shifts) -> jnp.ndarray:
     """out(x) = values(x - shifts[i]) where index(x) == i.
 
-    One-hot select-sum over a STATIC list of shifted copies — the TPU
-    substitute for a per-pixel gather (pure VPU passes; see the gather
-    gotcha in ops/wta.py::_value_at)."""
+    One-hot select-sum over a static list of shifted copies."""
     out = jnp.zeros_like(values)
     for i, sh in enumerate(shifts):
         out = out + jnp.where(index == i, _shifted(values, 0, int(sh)), 0)
@@ -138,9 +119,8 @@ def _hat_matmul_warp(img: jnp.ndarray, g: jnp.ndarray) -> jnp.ndarray:
     """out(y, x) = bilinear img(y, x - g[x]) for a 1D column field g (W,).
 
     The hat matrix M[u, x] = max(0, 1 - |clip(x - g[x]) - u|) realizes an
-    arbitrary-range per-COLUMN shift as one (H,W)@(W,W) matmul — the MXU
-    one-hot warp (ops/sweep_pallas.py uses the same mechanism per plane).
-    HIGHEST precision: the hat weights must act as exact f32 bilinear
+    arbitrary-range per-COLUMN shift as one (H,W)@(W,W) matmul. HIGHEST
+    precision: the hat weights must act as exact f32 bilinear
     coefficients, not bf16 (census bits flip on ~1-LSB intensity noise)."""
     w = img.shape[1]
     pos = jnp.clip(jnp.arange(w, dtype=img.dtype) - g, 0.0, w - 1.0)
@@ -153,7 +133,7 @@ def _hat_matmul_warp(img: jnp.ndarray, g: jnp.ndarray) -> jnp.ndarray:
 
 
 def _smooth_prewarp(right: jnp.ndarray, s_star: jnp.ndarray,
-                    interpret: bool = False, smooth_r: int = None):
+                    smooth_r: int = None):
     """Warp ``right`` by the smooth field ``s_star`` (see module docstring).
 
     Composition (1D matmul INNER, residual chain OUTER):
@@ -200,14 +180,11 @@ def _smooth_prewarp(right: jnp.ndarray, s_star: jnp.ndarray,
     # errors across 50-column zones)
     v1 = _hat_matmul_warp(right, g)
 
-    # outer chain, anchored at the output pixel: bilinear v1(x - r(x)),
-    # ONE Pallas pass with the 1D field g sampled by the same weights
-    # (the XLA tap chain re-reads v1 per tap: ~1.1 ms at 89 taps vs
-    # traffic-bound in-kernel slices, probe_cascade2_stages.py); by the
-    # hat identity sum_k w_k*k == r, so s_eff = r + sum_k w_k g(x-k) —
-    # the EXACT realized field, including where r clamps
-    wright, g_samp = hat_sample(v1, r, -R, R, aux=g,
-                                interpret=interpret)
+    # outer sample, anchored at the output pixel: bilinear v1(x - r(x)),
+    # with the 1D field g sampled by the same two weights; the weights
+    # sum to 1 with mean offset r, so s_eff = r + sum_k w_k g(x-k) — the
+    # EXACT realized field, including where r clamps
+    wright, g_samp = hat_sample(v1, r, -R, R, aux=g)
     s_eff = r + g_samp
     return wright, s_eff
 
@@ -275,18 +252,13 @@ def cascade_two_view_disparity(
     lp = _pad_to_multiple(left, s)
     rp = _pad_to_multiple(right, s)
     d_coarse = -(-total // s)  # ceil
-    d_coarse = -(-d_coarse // 8) * 8  # sublane multiple for the Pallas path
+    d_coarse = -(-d_coarse // 8) * 8  # whole multiples of 8 disparities
     # scale the census window DOWN with the resolution: a (7,9) window at
     # quarter res spans 4x the scene footprint, and on steep slopes its
     # fronto-parallel support under-estimates disparity by 5-7 coarse px
-    # in whole blobs — the entire round-5 residual tail
-    # (probe_cascade_errors3.py + the census A/B: coarse (5,5) takes the
-    # eval-scene bad-2 from 0.167% to 0.001%; shrinking the FINE window
-    # instead does nothing). Keep the window WIDER than tall: the builder
-    # kernel's block geometry strongly prefers lane-major windows — (5,7)
-    # measured 0.085 ms vs (5,5) 0.649 and (7,7) 1.8 for the SAME coarse
-    # pipeline, within-run (scripts/probe_cascade3.py), at equal accuracy
-    # (bad-2 0.024% vs 0.001%, both far under the bar).
+    # in whole blobs (a coarse (5,5) window takes the eval-scene bad-2
+    # from 0.167% to 0.001%; shrinking the FINE window instead does
+    # nothing). (5,7) scores within the same bar (bad-2 0.024%).
     wh, ww = cost_cfg.census_window
     wh_c = max(5, (wh // 2) | 1)
     coarse_win = (wh_c, max(wh_c + 2, (ww // 2) | 1))
@@ -319,8 +291,8 @@ def cascade_two_view_disparity(
         # ---- slope-compensated smooth field + pre-warp ---------------------
         # covered totals at x span [s*(x), s*(x) + Df*(1-sigma)] (the
         # match position moves with the residual), so center with the
-        # locally smoothed coarse gradient (probe_smooth_warp.py: a 25x25
-        # box is the difference between a 0.14% and a 0.55% tail)
+        # locally smoothed coarse gradient (a 25x25 box is the difference
+        # between a 0.14% and a 0.55% tail)
         # the field need only be accurate within the fine margin, and the
         # match-anchored sampling AMPLIFIES its wiggles by 1/(1-sigma): a
         # 9x9 box mean kills the coarse-grid interpolation noise that
@@ -336,7 +308,7 @@ def cascade_two_view_disparity(
         sigma = jnp.clip(_box_mean(gx, 25), 0.0, 0.7)
         # slant_bias (default 0 BY MEASUREMENT): a sigma-proportional
         # up-shift of the window was the first idea for the steep-flank
-        # coarse under-estimation blob (probe_cascade_errors3.py), but it
+        # coarse under-estimation blob, but it
         # displaces well-covered pixels too — measured WORSE at every
         # tested beta (0.5: 0.183%, 1.0: 0.202% vs 0.167% baseline);
         # kept as a knob for extreme-slant scenes
@@ -344,11 +316,7 @@ def cascade_two_view_disparity(
             up_f - 0.5 * Df * (1.0 - sigma) + slant_bias * 0.5 * Df * sigma,
             0.0, float(total - Df),
         )
-        from stereovisionarray_tpu.backend import resolve_backend
-
-        kern_interp = resolve_backend(backend) != "pallas"
-        wright, s_eff = _smooth_prewarp(right, s_star, interpret=kern_interp,
-                                        smooth_r=smooth_r)
+        wright, s_eff = _smooth_prewarp(right, s_star, smooth_r=smooth_r)
         offset_field = s_eff
     else:
         # ---- integer band offsets (round-4 path) ---------------------------
@@ -374,7 +342,7 @@ def cascade_two_view_disparity(
     # fine-index field is ~constant), so 4 SGM paths match 8 to within
     # the noise floor on the FINE pass (bad-2 0.024% -> 0.037% on the
     # eval scene, sustained-0.45-slope fixture 0.06% — still under the
-    # 0.1% bar) at ~-0.2 ms/frame. The COARSE pass must keep the
+    # 0.1% bar) at half the path scans. The COARSE pass must keep the
     # caller's full path count: dropping ITS diagonals on sustained
     # slopes blows the tail 10x (1.34% — isolated per-pass, fresh
     # processes). internal_paths=None restores full paths everywhere.
@@ -387,10 +355,9 @@ def cascade_two_view_disparity(
 
     # total disparity: the shift field sampled where the match landed
     if mode == "smooth":
-        # bilinear sample of the smooth field at (x - d_f): the same
-        # Pallas hat-sampling pass as the warp (never a per-pixel gather)
+        # bilinear sample of the smooth field at (x - d_f), as the warp
         t = jnp.clip(fine.disparity, 0.0, Df - 1.0)
-        off_at = hat_sample(offset_field, t, 0, Df - 1, interpret=kern_interp)
+        off_at = hat_sample(offset_field, t, 0, Df - 1)
     else:
         # band offsets are piecewise-constant: nearest sample (r4 decode)
         df_round = jnp.clip(jnp.round(fine.disparity).astype(jnp.int32), 0, Df - 1)
@@ -404,8 +371,8 @@ def cascade_two_view_disparity(
     if mode == "smooth":
         # residual speckles from warp-field error survive the fine pass as
         # small blobs against correct neighbours: a decoded-map median +
-        # speckle pass removes them (probe_smooth_warp.py: bad-2 0.149% ->
-        # 0.048% at matching density)
+        # speckle pass removes them (bad-2 0.149% -> 0.048% at matching
+        # density)
         disparity = median3x3(disparity, valid)
         disparity, valid = speckle_filter(
             disparity, valid, max_diff=1.5, window=5, min_support=8

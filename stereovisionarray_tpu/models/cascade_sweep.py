@@ -3,8 +3,8 @@
 The array generalization of ``models/cascade.py``: the reference brackets
 each ray between 0.5x and 1.0x depth and rasterizes the segment per pixel
 (``/root/reference/src/CameraStereoVision.cpp:60-73``) — per-pixel
-data-dependent candidate lists that a TPU cannot express. The TPU-native
-form is a static two-level cascade over the plane axis:
+data-dependent candidate lists. The array-program form is a static
+two-level cascade over the plane axis:
 
 1. **Coarse pass** — area-downsample every view by ``coarse_factor`` and
    run the full :func:`plane_sweep_depth` with ``ceil(D / factor)`` planes
@@ -156,12 +156,8 @@ def cascade_static_params(
       view's band-field read on the fine window's midpoint (halves the
       worst-case band misalignment from ``|c_v| * D_fine`` to half that);
     - ``fine_pad``: static bound on the fine pass's residual shifts
-      ``|c_v| * (D_fine - 1)``. NOTE: production callers should pass
-      ``fine_shift_pad=None`` (reuse the full-range ``shift_pad``): the
-      tight pad MEASURED ~20% SLOWER on device at the bench config
-      (volume D=48 pad=11 6.03 vs pad=48 5.07 ms/set,
-      probe_cascade_stages2.py — smaller padded blocks worsen the kernel's
-      block geometry). Returned for experiments only.
+      ``|c_v| * (D_fine - 1)``. Production callers pass
+      ``fine_shift_pad=None`` (reuse the full-range ``shift_pad``).
 
     Returns ``(None, None)`` for traced cameras; the cascade then skips
     centering and falls back to ``shift_pad``.
@@ -211,10 +207,10 @@ def _coarse_band_prewarp(
     :func:`cascade_plane_sweep_depth` and the plane-sharded program
     (parallel/cascade_sweep.py), whose fine passes differ.
 
-    ``mode="smooth"`` (round-5 default) pre-warps each view by the
-    CONTINUOUS plane-index field (box-smoothed coarse map), realized as
-    two hat-sampling passes per view (vertical via transpose, then
-    horizontal — ``ops/hatsample.py``; per-pixel gathers are illegal).
+    ``mode="smooth"`` (default) pre-warps each view by the CONTINUOUS
+    plane-index field (box-smoothed coarse map), realized as two bilinear
+    sampling passes per view (vertical via transpose, then horizontal —
+    ``ops/hatsample.py``).
     The round-4 band quantization put ``|c_v|*band_step``-px content
     seams in every pre-warped view; on slanted surfaces those seams are
     the entire bad-2 tail (EVAL_CASCADE_SWEEP_r04: 0.39% vs flat 0.06%).
@@ -243,16 +239,12 @@ def _coarse_band_prewarp(
     # ---- coarse pass on the downsampled rig --------------------------------
     imgs_p = _pad_to_multiple(images, s)
     d_coarse = -(-total // s)
-    d_coarse = -(-d_coarse // 8) * 8  # sublane multiple for the Pallas path
-    # sources_8bit asserts integer-valued [0,255] sources (single-arm exact
-    # bf16 warp, ops/sweep_pallas.py) — NEITHER cascade pass qualifies: the
-    # coarse pass sees area-downsampled means, the fine pass bilinear
-    # pre-warped content. Force the hi/lo split on both.
+    d_coarse = -(-d_coarse // 8) * 8  # whole multiples of 8 planes
     # census patch scaled DOWN with resolution (the two-view cascade's
     # census A/B: a full-size window at quarter res spans 4x the scene
     # footprint and under-estimates on slants — models/cascade.py)
     cfg_c = dataclasses.replace(
-        cfg, num_planes=d_coarse, sources_8bit=False,
+        cfg, num_planes=d_coarse,
         patch=max(3, (cfg.patch // s) | 1),
     )
     coarse = plane_sweep_depth(
@@ -269,11 +261,10 @@ def _coarse_band_prewarp(
 
     # a coarse blunder poisons a whole fine band: median + speckle suppress
     # isolated blunders; occlusion holes get the BACKGROUND (max-index) band.
-    # Every op here costs fixed ~10-25us regardless of the (tiny) coarse
-    # shape (probe_cascade_stages.py) — window/span are chosen for op COUNT
-    # (speckle w5 = 25 shifted compares vs 81; fill span 32 = 5 doubling
-    # steps; a coarse occlusion hole wider than 32 coarse px would need a
-    # disparity range far beyond the plane bracket)
+    # At these tiny coarse shapes the op count is the cost, so window/span
+    # are chosen for it (speckle w5 = 25 shifted compares vs 81; fill span
+    # 32 = 5 doubling steps; a coarse occlusion hole wider than 32 coarse px
+    # would need a disparity range far beyond the plane bracket)
     kc = median3x3(coarse.plane, coarse.valid)
     kc, vc = speckle_filter(kc, coarse.valid, max_diff=2.0, window=5,
                             min_support=8)
@@ -299,9 +290,6 @@ def _coarse_band_prewarp(
     c = (sh_full[:, total - 1, :] - a) / max(total - 1, 1)  # (S, 2) per-plane step
 
     if mode == "smooth":
-        from stereovisionarray_tpu.backend import resolve_backend
-
-        interp = resolve_backend(backend) != "pallas"
         ones = jnp.ones_like(k_up)
         k_s = box_filter2d(k_up, 9) / box_filter2d(ones, 9)
         K_star = jnp.clip(k_s - 0.5 * df, 0.0, float(total - df))
@@ -317,9 +305,9 @@ def _coarse_band_prewarp(
             sv = a[v, 1] + c[v, 1] * Kv
             # vertical pass on the transposed view, then horizontal
             tmp = hat_sample(src_images[v].T, jnp.clip(-sv, -pad, pad).T,
-                             -pad, pad, interpret=interp).T
+                             -pad, pad).T
             warped.append(hat_sample(tmp, jnp.clip(-su, -pad, pad),
-                                     -pad, pad, interpret=interp))
+                                     -pad, pad))
         return jnp.stack(warped), K_star, a, c, depths_full
 
     if band_offsets is not None:
@@ -332,8 +320,7 @@ def _coarse_band_prewarp(
     warp_one = jax.vmap(lambda p, o: _shift_warp(p, o[0], o[1], h, w, pad))
     wsrc = jnp.zeros((n_src, h, w), dtype)
     for b in range(n_bands):
-        # one-hot select over STATIC per-band shifts — never a per-pixel
-        # gather (serializes on TPU; see ops/wta.py::_value_at)
+        # one-hot select over static per-band shifts
         start_b = min(b * q, total - df)
         wsrc = wsrc + jnp.where(bv == b, warp_one(padded, a + c * start_b), 0.0)
     return wsrc, offset, a, c, depths_full
@@ -404,7 +391,7 @@ def cascade_plane_sweep_depth(
     # ---- fine pass: residual shifts c_v * j over the pre-warped sources ----
     j = jnp.arange(df, dtype=dtype)
     fine_shifts = c[:, None, :] * j[None, :, None]  # (S, Df, 2)
-    cfg_f = dataclasses.replace(cfg, num_planes=df, sources_8bit=False)
+    cfg_f = dataclasses.replace(cfg, num_planes=df)
     vol, _, _ = plane_sweep_volume(
         jnp.concatenate([ref[None], wsrc], axis=0),
         cameras,  # unused: explicit shifts
@@ -413,7 +400,6 @@ def cascade_plane_sweep_depth(
         cfg_f,
         shift_pad=fine_shift_pad if fine_shift_pad is not None else shift_pad,
         depths=depths_full[:df],
-        backend=backend,
         shifts=fine_shifts,
     )
     k_f, cost, conf, _ = _volume_to_maps(vol, ref, cfg_f, sgm_cfg, backend)

@@ -13,10 +13,10 @@ if enough *other* views, reprojected through their own depth maps, agree on
 the same 3D surface point — followed by cross-view deduplication and
 consistency-weighted depth averaging.
 
-TPU shape: everything is one jitted program with static shapes. The pairwise
+Program shape: everything is one jitted program with static shapes. The pairwise
 view check runs as a ``lax.scan`` over source views j; each step checks ALL
 reference views i against j at once (batched project + one bilinear sample),
-so the O(N^2) pair structure costs N scan steps of fat (N, H*W) VPU work
+so the O(N^2) pair structure costs N scan steps of fat (N, H*W) elementwise work
 instead of N^2 Python dispatches. The per-pixel bilinear gathers are the
 irreducible data-dependent part (as in ``ops/warp.py``); fusion runs once per
 frame-set, outside the per-frame hot path.

@@ -12,7 +12,7 @@ The idiomatic generalization of the reference's multi-view machinery:
    fusion — instead of updating one disparity map pair-by-pair (last pair
    wins, reference bug §2.3.4), all views vote in one cost volume.
 
-TPU mapping: the sweep is a ``lax.map`` over planes (bounds the (S, H, W)
+Execution: the sweep is a ``lax.map`` over planes (bounds the (S, H, W)
 warp intermediate), each plane a vmap over source views of
 warp + census/SAD/ZNCC cost, fused over views by mean / top-k mean. The
 resulting (H, W, D) volume feeds the same SGM aggregation as two-view
@@ -28,10 +28,12 @@ from typing import NamedTuple, Optional, Sequence
 import jax
 import jax.numpy as jnp
 
+from stereovisionarray_tpu.backend import resolve_backend
 from stereovisionarray_tpu.config import PlaneSweepConfig, SGMConfig
 from stereovisionarray_tpu.geometry.camera import CameraArray
 from stereovisionarray_tpu.geometry.epipolar import inverse_depth_samples
 from stereovisionarray_tpu.ops.census import census_transform, hamming_distance
+from stereovisionarray_tpu.ops.confidence import confidence_from_volume
 from stereovisionarray_tpu.ops.sgm import sgm_aggregate
 from stereovisionarray_tpu.ops.warp import homography_warp
 from stereovisionarray_tpu.ops.wta import winner_take_all, subpixel_refine
@@ -79,8 +81,7 @@ def translation_shifts(
     equal-z rigs the ``shift_pad > 0`` gate admits, but computed WITHOUT
     the K^{-1} matrix round trip: the homography chain leaves
     ``fx * (cx/fx) != cx`` dirt of ~1e-5 px in components that are exactly
-    zero, which defeats the sweep kernel's static axis-aligned fast path
-    (ops/sweep_pallas.py::_static_axis_flags) and slightly biases the warp.
+    zero, which slightly biases the warp.
     """
     src = jnp.atleast_1d(jnp.asarray(src))
     n = cameras.t.shape[0]
@@ -97,42 +98,6 @@ def translation_shifts(
         cy[src] - cy[ref_index]
     )[:, None]
     return jnp.stack([su, sv], axis=-1)
-
-
-def translation_axis_flags(cameras, ref_index, src_indices):
-    """HOST-SIDE per-view axis flags for the Pallas sweep kernel's static
-    fast path, or None when the cameras are traced (then the kernel keeps
-    the fully dynamic one-hot warp for every view).
-
-    Must be called OUTSIDE jit on a concrete camera array (the pattern of
-    ``array_pipeline._shift_warp_pad``): inside ``plane_sweep_volume`` the
-    cameras are a traced pytree, so the kernel-side concretization attempt
-    (``sweep_pallas._static_axis_flags``) always fails there — the flags
-    have to be computed from the concrete rig and plumbed through as a
-    static argument. 'x' = sv(d) == 0 for EVERY plane (the view moves along
-    x only: t_rel.y == 0 and equal cy — see :func:`translation_shifts`),
-    'y' symmetrically, None = general motion."""
-    import numpy as np
-
-    if isinstance(cameras.t, jax.core.Tracer):
-        return None  # traced cameras -> no static flags
-    try:
-        t = np.asarray(cameras.t)
-        n = t.shape[0]
-        cx = np.broadcast_to(np.asarray(cameras.cx), (n,))
-        cy = np.broadcast_to(np.asarray(cameras.cy), (n,))
-    except (jax.errors.TracerArrayConversionError,
-            jax.errors.ConcretizationTypeError):
-        return None
-    flags = []
-    for s in [int(i) for i in np.atleast_1d(np.asarray(src_indices))]:
-        if t[s, 1] == t[ref_index, 1] and cy[s] == cy[ref_index]:
-            flags.append("x")
-        elif t[s, 0] == t[ref_index, 0] and cx[s] == cx[ref_index]:
-            flags.append("y")
-        else:
-            flags.append(None)
-    return tuple(flags)
 
 
 def _view_cost(
@@ -182,8 +147,7 @@ def _fuse_views(
     if cfg.fusion == "topk_mean":
         k = min(cfg.topk, costs.shape[0])
         if k == costs.shape[0]:
-            # top-k of all views is a plain mean — skip the TPU-expensive
-            # sort network of lax.top_k entirely
+            # top-k of all views is a plain mean — skip lax.top_k
             return jnp.mean(costs, axis=0)
         # k smallest = -(k largest of negated)
         top = -jax.lax.top_k(-jnp.moveaxis(costs, 0, -1), k)[0]  # (H, W, k)
@@ -196,7 +160,7 @@ def _chunked_plane_map(per_plane, plane_args: jnp.ndarray, chunk: int):
 
     One plane of work here is ~30 small ops on a (270, 360)-class image —
     per-kernel dispatch overhead dominates when lax.map runs them one plane
-    at a time (measured 50 ms for 128 planes x 4 views on a v5e). Mapping
+    at a time. Mapping
     over chunks of `chunk` planes with an inner vmap turns every op into a
     chunk-deep fused kernel: same peak-memory bound (one (chunk, S, H, W)
     warp stack) at a fraction of the dispatch count. The plane count is
@@ -223,10 +187,8 @@ def _shift_warp(padded: jnp.ndarray, su, sv, h: int, w: int, pad: int):
     """Sample a `pad`-padded source image at a UNIFORM subpixel shift:
     out[y, x] = src[y + sv, x + su], bilinear.
 
-    Four `dynamic_slice`s + lerp instead of a per-pixel gather — on TPU a
-    general 2D gather serializes (measured: the homography-warp plane sweep
-    spends ~16 s/frame-set in gathers at 5x5x270x360x128); contiguous
-    dynamic slices are full-bandwidth copies. Used when every homography of
+    Four `dynamic_slice`s + lerp: the shift is uniform over the image, so
+    contiguous slices replace a per-pixel gather. Used when every homography of
     the sweep is a pure translation (translation-only rigs — the reference
     geometry)."""
     j0 = jnp.floor(sv)
@@ -246,10 +208,7 @@ def _shift_warp(padded: jnp.ndarray, su, sv, h: int, w: int, pad: int):
 
 @functools.partial(
     jax.jit,
-    static_argnames=(
-        "ref_index", "src_indices", "cfg", "shift_pad", "backend",
-        "axis_flags",
-    ),
+    static_argnames=("ref_index", "src_indices", "cfg", "shift_pad"),
 )
 def plane_sweep_volume(
     images: jnp.ndarray,
@@ -259,8 +218,6 @@ def plane_sweep_volume(
     cfg: PlaneSweepConfig = PlaneSweepConfig(),
     shift_pad: int = 0,
     depths: Optional[jnp.ndarray] = None,
-    backend: str = "auto",
-    axis_flags: Optional[tuple] = None,
     shifts: Optional[jnp.ndarray] = None,
 ) -> tuple:
     """Build the fused (H, W, D) plane-sweep cost volume and the per-plane
@@ -296,52 +253,6 @@ def plane_sweep_volume(
         census_transform(ref, (cfg.patch, cfg.patch)) if cfg.cost == "census" else None
     )
     src_images = images[src]  # (S, H, W)
-
-    resolved = _resolve_backend(backend)
-    # "mean" averages over VALID views (kernel valid_mean=True);
-    # "topk_mean" with k >= S is a plain ceiling-padded mean (False);
-    # "topk_mean" with k < S streams a k-slot insertion sort in-kernel —
-    # three distinct fusion semantics, all kernel-supported (the XLA
-    # chain remains the oracle for "min" and the sad/zncc costs)
-    mean_fusion = cfg.fusion == "mean" or (
-        cfg.fusion == "topk_mean" and cfg.topk >= len(src_indices)
-    )
-    kernel_topk = (
-        int(cfg.topk)
-        if cfg.fusion == "topk_mean" and 1 <= cfg.topk < len(src_indices)
-        else None
-    )
-    if (
-        shift_pad > 0
-        and cfg.cost == "census"
-        and (mean_fusion or kernel_topk is not None)
-        and resolved in ("pallas", "pallas_interpret")
-    ):
-        # Fused MXU one-hot-warp kernel: sources stay VMEM-resident across
-        # the plane grid, warp + census + hamming + fusion in one pass
-        # (~2x the XLA chain; see ops/sweep_pallas.py for the traffic
-        # analysis and the deliberate patch//2 border divergence).
-        from stereovisionarray_tpu.ops.sweep_pallas import (
-            plane_sweep_census_pallas,
-        )
-
-        if shifts is None:
-            shifts = translation_shifts(cameras, ref_index, src, depths)
-        fused, nviews = plane_sweep_census_pallas(
-            ref,
-            src_images,
-            jnp.swapaxes(shifts, 0, 1),  # (D, S, 2)
-            patch=cfg.patch,
-            shift_pad=shift_pad,
-            valid_mean=cfg.fusion == "mean",
-            interpret=resolved == "pallas_interpret",
-            axis_flags=axis_flags,
-            sources_8bit=cfg.sources_8bit,
-            topk=kernel_topk,
-        )
-        vol = jnp.moveaxis(fused, 0, -1)  # (H, W, D)
-        nv = jnp.moveaxis(nviews, 0, -1)
-        return vol.astype(dtype), nv, depths
 
     if shift_pad > 0:
         pad = shift_pad + 1
@@ -397,14 +308,12 @@ def plane_sweep_volume(
     return vol, nv, depths
 
 
-from stereovisionarray_tpu.backend import resolve_backend as _resolve_backend
-
 
 @functools.partial(
     jax.jit,
     static_argnames=(
         "ref_index", "src_indices", "cfg", "sgm_cfg", "min_views", "backend",
-        "shift_pad", "axis_flags",
+        "shift_pad",
     ),
 )
 def plane_sweep_depth(
@@ -418,7 +327,6 @@ def plane_sweep_depth(
     mask: Optional[jnp.ndarray] = None,
     backend: str = "auto",
     shift_pad: int = 0,
-    axis_flags: Optional[tuple] = None,
 ) -> PlaneSweepOutput:
     """Full N-view fused depth for the reference view.
 
@@ -427,14 +335,12 @@ def plane_sweep_depth(
     Pixels seen by fewer than ``min_views`` sources at their winning plane
     are invalidated (they have no photoconsistency evidence).
 
-    backend: "auto" | "xla" | "pallas" | "pallas_interpret" — the Pallas
-    path runs SGM aggregation + WTA/subpixel through the (H, D, W) fused
-    kernels (ops/sgm_pallas.py, ops/extract_pallas.py); smoothness over
+    backend: "auto" | "xla" | "pallas" | "pallas_interpret" — how SGM
+    aggregation over the plane axis runs (``backend.py``); smoothness over
     the plane index is the same recurrence as disparity smoothness.
     """
     vol, nv, depths = plane_sweep_volume(
         images, cameras, ref_index, src_indices, cfg, shift_pad=shift_pad,
-        backend=backend, axis_flags=axis_flags,
     )
     k, cost, conf, k_int = _volume_to_maps(
         vol, images[ref_index], cfg, sgm_cfg, backend
@@ -446,8 +352,6 @@ def plane_sweep_depth(
     inv_depth = inv_near + k * step
     depth = 1.0 / jnp.maximum(inv_depth, 1e-9)
 
-    # one-hot select, NOT take_along_axis: a per-pixel gather serializes
-    # on TPU (measured ~1 ms/lookup at this shape in ops/refine.py)
     d_sel = jax.lax.broadcasted_iota(jnp.int32, nv.shape, nv.ndim - 1)
     views_at_win = jnp.sum(
         jnp.where(d_sel == k_int[..., None], nv, 0), axis=-1
@@ -472,95 +376,23 @@ def _volume_to_maps(
     """(H, W, D) fused cost volume -> per-pixel winner maps.
 
     SGM aggregation over the plane axis + WTA + subpixel parabola +
-    PKRN confidence, on the requested backend. Returns
+    PKRN confidence, SGM on the requested backend. Returns
     ``(k, cost, conf, k_int)`` with ``k`` the fractional winning plane
     index. Shared by :func:`plane_sweep_depth` and the cascade fine pass
     (models/cascade_sweep.py), which decode plane indices differently.
     """
-    resolved = _resolve_backend(backend)
-    if resolved in ("pallas", "pallas_interpret"):
-        from stereovisionarray_tpu.ops.cost_volume import COST_SCALE
-        from stereovisionarray_tpu.ops.extract_pallas import extract_maps_hdw
-
-        interpret = resolved == "pallas_interpret"
-        vol_hdw = jnp.moveaxis(vol, -1, 1)
-        # int16 fixed-point aggregation (the two-view fast-path trick,
-        # models/two_view.py) HALVES the SGM volume traffic, but the scale
-        # must match the cost mode's dynamic range: census fused costs span
-        # [0, patch^2-1] (scale 4 ~= 0.5% steps), zncc costs live in [0, 2]
-        # and need a far finer step. Quantization is skipped entirely (the
-        # Pallas kernels run float32) whenever a nonzero SGM penalty would
-        # round to zero or the 8-path aggregate could overflow int16.
-        # The XLA oracle path below stays float for test comparison.
-        scale = 512 if cfg.cost == "zncc" else COST_SCALE
-        ceiling = {
-            "census": cfg.patch * cfg.patch - 1, "sad": 255.0, "zncc": 2.0,
-        }[cfg.cost]
-        pens = (
-            (sgm_cfg.p1, sgm_cfg.p2, sgm_cfg.p2_min) if sgm_cfg is not None else ()
+    if sgm_cfg is not None:
+        vol = sgm_aggregate(
+            vol,
+            p1=sgm_cfg.p1,
+            p2=sgm_cfg.p2,
+            num_paths=sgm_cfg.num_paths,
+            image=ref_image,
+            adaptive_p2=sgm_cfg.adaptive_p2,
+            p2_min=sgm_cfg.p2_min,
+            backend=resolve_backend(backend),
         )
-        quantize = all(round(p * scale) >= 1 for p in pens if p > 0) and (
-            8 * (ceiling + max(pens, default=0.0)) * scale < 30000
-        )
-        if quantize:
-            pen = lambda v: round(v * scale)
-            # int8 when the scaled ceiling fits: the raw volume read by
-            # every sweep halves again (the kernels load i8, compute i32,
-            # sum in int16 — BIT-IDENTICAL to storing the same values in
-            # int16, tested in test_sgm_pallas/test_parallel and on device
-            # by check_tpu_parity). Census at patch 5 is 24 * 4 = 96 <= 127.
-            vol_dtype = (
-                jnp.int8 if round(ceiling * scale) <= 127 else jnp.int16
-            )
-            vol_hdw = jnp.round(vol_hdw * scale).astype(vol_dtype)
-        else:
-            scale = 1
-            pen = lambda v: v
-            vol_hdw = vol_hdw.astype(jnp.float32)
-        if sgm_cfg is not None:
-            # fused final sweep + extraction (models/two_view.py fast path):
-            # the aggregated plane volume never reaches HBM — bit-identical
-            # to sgm_aggregate_pallas_hdw + extract_maps_hdw for int16
-            from stereovisionarray_tpu.ops.sgm_pallas import (
-                sgm_extract_fused_wdh,
-            )
-
-            maps = sgm_extract_fused_wdh(
-                vol_hdw,
-                None,
-                p1=pen(sgm_cfg.p1),
-                p2=pen(sgm_cfg.p2),
-                num_paths=sgm_cfg.num_paths,
-                image=ref_image,
-                adaptive_p2=sgm_cfg.adaptive_p2,
-                p2_min=pen(sgm_cfg.p2_min),
-                subpixel=True,
-                uniqueness=0.0,
-                lr_max_diff=0.0,
-                interpret=interpret,
-            )
-        else:
-            maps = extract_maps_hdw(vol_hdw, subpixel=True, interpret=interpret)
-        k = maps.disparity  # fractional winning plane index
-        cost = maps.cost / scale  # back to unscaled cost units
-        k_int = jnp.clip(jnp.round(k).astype(jnp.int32), 0, vol.shape[-1] - 1)
-        from stereovisionarray_tpu.ops.confidence import pkrn_confidence
-
-        conf = pkrn_confidence(maps.cost, maps.second)  # scale-invariant
-    else:
-        if sgm_cfg is not None:
-            vol = sgm_aggregate(
-                vol,
-                p1=sgm_cfg.p1,
-                p2=sgm_cfg.p2,
-                num_paths=sgm_cfg.num_paths,
-                image=ref_image,
-                adaptive_p2=sgm_cfg.adaptive_p2,
-                p2_min=sgm_cfg.p2_min,
-            )
-        k_int, cost = winner_take_all(vol)
-        k = subpixel_refine(vol, k_int)  # fractional plane index
-        from stereovisionarray_tpu.ops.confidence import confidence_from_volume
-
-        conf = confidence_from_volume(vol, k_int)
+    k_int, cost = winner_take_all(vol)
+    k = subpixel_refine(vol, k_int)  # fractional plane index
+    conf = confidence_from_volume(vol, k_int)
     return k, cost, conf, k_int

@@ -18,9 +18,15 @@ import jax
 import jax.numpy as jnp
 
 from stereovisionarray_tpu.config import CostConfig, SGMConfig
-from stereovisionarray_tpu.ops.cost_volume import fused_cost_volume, right_from_left_volume
-from stereovisionarray_tpu.ops.sgm import sgm_aggregate
-from stereovisionarray_tpu.ops.wta import INVALID_DISPARITY, disparity_from_volume
+from stereovisionarray_tpu.backend import resolve_backend
+from stereovisionarray_tpu.ops.cost_volume import (
+    cost_scale_for,
+    fused_cost_volume,
+    int8_cost_fits,
+    right_from_left_volume,
+)
+from stereovisionarray_tpu.ops.sgm import ALL_PATH_IDS, sgm_aggregate_paths
+from stereovisionarray_tpu.ops.wta import disparity_from_volume
 
 
 class TwoViewOutput(NamedTuple):
@@ -55,7 +61,57 @@ def depth_to_disparity(
     return jnp.where(depth > 1e-9, disp, invalid_fill)
 
 
-from stereovisionarray_tpu.backend import resolve_backend as _resolve_backend
+def cost_dtype(cost_cfg: CostConfig):
+    """The cost volume's dtype: ``cost_cfg.dtype``, except that int8 widens
+    to int16 when the census window's worst cost would overflow it."""
+    dtype = jnp.dtype(cost_cfg.dtype)
+    if dtype == jnp.int8 and not int8_cost_fits(
+        cost_cfg.census_window, cost_cfg.bt_weight, cost_cfg.bt_clip
+    ):
+        return jnp.dtype(jnp.int16)
+    return dtype
+
+
+def sgm_penalties(sgm_cfg: SGMConfig, dtype) -> dict:
+    """P1, P2 and the adaptive-P2 floor in the cost volume's units: scaled
+    by ``cost_scale_for(dtype)`` and rounded for integer (fixed-point)
+    volumes, as given for float ones."""
+    if not jnp.issubdtype(dtype, jnp.integer):
+        return dict(p1=sgm_cfg.p1, p2=sgm_cfg.p2, p2_min=sgm_cfg.p2_min)
+    scale = cost_scale_for(dtype)
+    return dict(p1=round(sgm_cfg.p1 * scale), p2=round(sgm_cfg.p2 * scale),
+                p2_min=round(sgm_cfg.p2_min * scale))
+
+
+def aggregate_costs(
+    vol: jnp.ndarray,
+    image: jnp.ndarray,
+    sgm_cfg: SGMConfig,
+    path_ids: tuple,
+    backend: str,
+) -> jnp.ndarray:
+    """SGM over ``path_ids`` of a cost volume built by ``fused_cost_volume``,
+    with the penalties in the volume's units (:func:`sgm_penalties`).
+
+    Returns the raw sum: the exact int32 sum for integer volumes, float32
+    otherwise; :func:`cost_units` converts it. ``backend`` is resolved
+    (``backend.resolve_backend``)."""
+    return sgm_aggregate_paths(
+        vol,
+        path_ids=path_ids,
+        image=image,
+        adaptive_p2=sgm_cfg.adaptive_p2,
+        backend=backend,
+        **sgm_penalties(sgm_cfg, vol.dtype),
+    )
+
+
+def cost_units(agg: jnp.ndarray, vol_dtype) -> jnp.ndarray:
+    """An aggregated volume as float32 in unscaled cost units. The scale is
+    a power of two, so the conversion of the int32 sums is exact."""
+    if jnp.issubdtype(vol_dtype, jnp.integer):
+        return agg.astype(jnp.float32) * (1.0 / cost_scale_for(vol_dtype))
+    return agg
 
 
 @functools.partial(
@@ -77,169 +133,36 @@ def two_view_disparity(
     All stages run on-device in one compiled program; configs are static
     (hashable frozen dataclasses) so each config compiles once.
 
-    backend: "auto" | "xla" | "pallas" | "pallas_interpret". The Pallas
-    path builds the cost volume in (H, D, W) layout (full 128-lane
-    utilization for D < 128), runs the fused-sweep SGM kernels, and
-    extracts disparity in one further volume pass — ~6x the XLA path's
-    throughput on a TPU chip at 540x768x64, numerically identical modulo
-    float summation order (same bad-2.0 on golden scenes)."""
-    dtype = jnp.dtype(cost_cfg.dtype)
-    if dtype == jnp.int8:
-        from stereovisionarray_tpu.ops.cost_volume import int8_cost_fits
-
-        if not int8_cost_fits(cost_cfg.census_window, cost_cfg.bt_weight,
-                              cost_cfg.bt_clip):
-            # large census windows overflow int8 at any useful scale —
-            # silently widen (same pipeline, scale 4)
-            dtype = jnp.dtype(jnp.int16)
-    integer_costs = jnp.issubdtype(dtype, jnp.integer)
-    compute_dtype = jnp.float32 if integer_costs else dtype
-    left = left.astype(compute_dtype)
-    right = right.astype(compute_dtype)
-    resolved = _resolve_backend(backend)
-    if integer_costs and resolved == "xla":
-        # the XLA scan path stays float; integer costs are a Pallas-path
-        # optimization (exact fixed-point math, half the HBM traffic)
-        dtype = jnp.dtype(jnp.float32)
-        integer_costs = False
-
-    if resolved in ("pallas", "pallas_interpret"):
-        from stereovisionarray_tpu.ops.cost_volume import cost_scale_for
-        from stereovisionarray_tpu.ops.extract_pallas import extract_disparity_hdw
-        from stereovisionarray_tpu.ops.sgm_pallas import sgm_aggregate_pallas_hdw
-
-        interpret = resolved == "pallas_interpret"
-        scale = cost_scale_for(dtype) if integer_costs else 1
-        if integer_costs:
-            # Fully-fused fast path: both cost layouts built directly
-            # (zero pre-sweep volume transposes — the (W, D, H) builder is
-            # roll-free), horizontal sweeps LAST, extraction fused into
-            # the reverse horizontal sweep with a streaming right-view WTA
-            # (the aggregated volume never touches HBM). Bit-identical to
-            # the unfused aggregate + extract for integer costs
-            # (tests/test_sgm_pallas.py::test_fused_rl_extract_bit_exact).
-            from stereovisionarray_tpu.ops.cost_pallas import (
-                fused_cost_volume_pallas_hdw,
-                fused_cost_volume_pallas_wdh,
-                wdh_block_rows,
-            )
-            from stereovisionarray_tpu.ops.sgm_pallas import (
-                sgm_extract_fused_wdh,
-            )
-            from stereovisionarray_tpu.ops.wta import DisparityResult
-
-            ckw = dict(
-                census_window=cost_cfg.census_window,
-                bt_weight=cost_cfg.bt_weight,
-                bt_clip=cost_cfg.bt_clip,
-                interpret=interpret,
-                out_dtype=str(dtype),
-            )
-            br = wdh_block_rows(left.shape[1])
-            if br is not None:
-                # build ONCE in the roll-free (W, D, H) layout; the (H, D, W)
-                # twin comes from one XLA transpose — measured ~0.17 ms/frame
-                # cheaper than running the barrel-shift HDW builder as well
-                # (scripts/perf_fused_ab.py: fused_rl vs fused_rl_2build)
-                vol_t = fused_cost_volume_pallas_wdh(
-                    left, right, cost_cfg.num_disparities, block_rows=br,
-                    **ckw,
-                )
-                from stereovisionarray_tpu.ops.sgm_pallas import (
-                    transpose_hdw as _transpose_hdw,
-                )
-
-                vol = _transpose_hdw(vol_t, interpret)
-            else:  # odd width: barrel builder + internal transpose fallback
-                vol = fused_cost_volume_pallas_hdw(
-                    left, right, cost_cfg.num_disparities, **ckw
-                )
-                vol_t = None
-            pen = lambda v: round(v * scale)
-            maps = sgm_extract_fused_wdh(
-                vol,
-                vol_t,
-                p1=pen(sgm_cfg.p1),
-                p2=pen(sgm_cfg.p2),
-                num_paths=sgm_cfg.num_paths,
-                image=left,
-                adaptive_p2=sgm_cfg.adaptive_p2,
-                p2_min=pen(sgm_cfg.p2_min),
-                subpixel=sgm_cfg.subpixel,
-                uniqueness=sgm_cfg.uniqueness if sgm_cfg.uniqueness > 0 else 0.0,
-                lr_max_diff=sgm_cfg.lr_max_diff if sgm_cfg.lr_max_diff > 0 else 0.0,
-                interpret=interpret,
-            )
-            from stereovisionarray_tpu.ops.confidence import pkrn_confidence
-
-            valid = maps.valid if mask is None else maps.valid & mask
-            res = DisparityResult(
-                disparity=jnp.where(valid, maps.disparity, INVALID_DISPARITY),
-                cost=maps.cost,
-                valid=valid,
-                confidence=pkrn_confidence(maps.cost, maps.second, valid),
-            )
-        else:
-            vol = fused_cost_volume(
-                left,
-                right,
-                cost_cfg.num_disparities,
-                census_window=cost_cfg.census_window,
-                bt_weight=cost_cfg.bt_weight,
-                bt_clip=cost_cfg.bt_clip,
-                dtype=dtype,
-                layout="hdw",
-            )
-            agg = sgm_aggregate_pallas_hdw(
-                vol,
-                p1=sgm_cfg.p1,
-                p2=sgm_cfg.p2,
-                num_paths=sgm_cfg.num_paths,
-                image=left,
-                adaptive_p2=sgm_cfg.adaptive_p2,
-                p2_min=sgm_cfg.p2_min,
-                interpret=interpret,
-            )
-            res = extract_disparity_hdw(
-                agg,
-                subpixel=sgm_cfg.subpixel,
-                uniqueness=sgm_cfg.uniqueness if sgm_cfg.uniqueness > 0 else 0.0,
-                lr_max_diff=sgm_cfg.lr_max_diff if sgm_cfg.lr_max_diff > 0 else 0.0,
-                mask=mask,
-                interpret=interpret,
-            )
-        # winning cost: expose the same (H, W) minimum the XLA path reports
-        cost_map = res.cost
-    else:
-        vol = fused_cost_volume(
-            left,
-            right,
-            cost_cfg.num_disparities,
-            census_window=cost_cfg.census_window,
-            bt_weight=cost_cfg.bt_weight,
-            bt_clip=cost_cfg.bt_clip,
-            dtype=dtype,
-        )
-        agg = sgm_aggregate(
-            vol,
-            p1=sgm_cfg.p1,
-            p2=sgm_cfg.p2,
-            num_paths=sgm_cfg.num_paths,
-            image=left,
-            adaptive_p2=sgm_cfg.adaptive_p2,
-            p2_min=sgm_cfg.p2_min,
-        )
-        vol_right = right_from_left_volume(agg) if sgm_cfg.lr_max_diff > 0 else None
-        res = disparity_from_volume(
-            agg,
-            vol_right=vol_right,
-            subpixel=sgm_cfg.subpixel,
-            uniqueness=sgm_cfg.uniqueness,
-            lr_max_diff=sgm_cfg.lr_max_diff,
-            mask=mask,
-            with_confidence=True,
-        )
-        cost_map = res.cost
+    backend: "auto" | "xla" | "pallas" | "pallas_interpret" — how SGM
+    aggregation runs (``backend.py``); every backend computes the same
+    sums, so the outputs agree."""
+    left = left.astype(jnp.float32)
+    right = right.astype(jnp.float32)
+    vol = fused_cost_volume(
+        left,
+        right,
+        cost_cfg.num_disparities,
+        census_window=cost_cfg.census_window,
+        bt_weight=cost_cfg.bt_weight,
+        bt_clip=cost_cfg.bt_clip,
+        dtype=cost_dtype(cost_cfg),
+    )
+    agg = cost_units(
+        aggregate_costs(vol, left, sgm_cfg, ALL_PATH_IDS[: sgm_cfg.num_paths],
+                        resolve_backend(backend)),
+        vol.dtype,
+    )
+    vol_right = right_from_left_volume(agg) if sgm_cfg.lr_max_diff > 0 else None
+    res = disparity_from_volume(
+        agg,
+        vol_right=vol_right,
+        subpixel=sgm_cfg.subpixel,
+        uniqueness=sgm_cfg.uniqueness,
+        lr_max_diff=sgm_cfg.lr_max_diff,
+        mask=mask,
+        with_confidence=True,
+    )
+    cost_map = res.cost
 
     disparity, valid = res.disparity, res.valid
     if sgm_cfg.median_filter or sgm_cfg.speckle_window > 0 or sgm_cfg.fill_holes:

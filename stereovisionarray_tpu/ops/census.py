@@ -2,9 +2,9 @@
 reference's 41x41 SAD patches (``/root/reference/src/CameraStereoVision.cpp:44,57``,
 ``getAbsDiff`` at ``/root/reference/src/functions.cpp:215-218``).
 
-Census is the standard SGM cost: robust to radiometric differences, and on TPU
-it turns the whole patch comparison into a couple of uint32 XOR + popcount VPU
-ops per candidate instead of a window reduction, so the cost volume build is
+Census is the standard SGM cost: robust to radiometric differences, and it
+turns the whole patch comparison into a couple of uint32 XOR + popcount
+elementwise ops per candidate instead of a window reduction, so the cost volume build is
 pure elementwise work that XLA fuses into the gather.
 
 Bit packing: a (wh, ww) census window has wh*ww - 1 comparison bits; they are
@@ -73,7 +73,7 @@ def hamming_distance(a: jnp.ndarray, b: jnp.ndarray, dtype=jnp.float32) -> jnp.n
     """Hamming distance between packed census codes.
 
     a, b: (..., P) uint32 bit planes. Returns (...,) in `dtype` — popcount of
-    XOR summed over planes (one VPU op chain; the reference's whole 41x41
+    XOR summed over planes (one elementwise op chain; the reference's whole 41x41
     getAbsDiff patch loop collapses to this)."""
     x = jax.lax.population_count(a ^ b)
     return jnp.sum(x, axis=-1).astype(dtype)

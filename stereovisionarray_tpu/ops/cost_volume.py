@@ -3,13 +3,11 @@
 Replaces the reference's hot loop — per-pixel 41x41 SAD over Bresenham
 candidates (``/root/reference/src/CameraStereoVision.cpp:49-95``,
 O(H*W*pairs*candidates*window^2) single-threaded) — with a fully vectorized
-H x W x D volume built from census hamming + Birchfield-Tomasi terms. On TPU
-the build is pure gather + XOR/popcount/abs elementwise work that XLA fuses;
-D rides the 128-wide lane axis.
+H x W x D volume built from census hamming + Birchfield-Tomasi terms: pure
+gather + XOR/popcount/abs elementwise work that XLA fuses.
 
-Layout convention: volumes are (H, W, D) with D minor — D is a power of two
-(pad to 128) so it maps exactly onto VPU lanes and is the natural shard axis
-for multi-chip cost volumes (parallel/sharding.py).
+Layout convention: volumes are (H, W, D) with D minor; D is the natural
+shard axis for multi-device cost volumes (parallel/two_view.py).
 """
 
 from __future__ import annotations
@@ -41,9 +39,7 @@ def cost_scale_for(dtype) -> int:
     int16 uses COST_SCALE=4 (0.25-bit resolution, exact for the default
     bt_weight). int8 must fit the worst cost (62 census bits + 8 BT = 70
     for the default 7x9 window) in [-128, 127], so it quantizes to whole
-    census bits (scale 1) — measured 0.003 px mean |delta| vs the int16
-    path on the golden fixture, same bad-2.0 to the digit
-    (scripts/check_tpu_parity.py --dtype int8). Float dtypes scale by 1."""
+    census bits (scale 1). Float dtypes scale by 1."""
     dt = jnp.dtype(dtype)
     if dt == jnp.int16:
         return COST_SCALE
@@ -59,11 +55,8 @@ def census_cost_volume(
     window: Tuple[int, int] = (7, 9),
     dtype=jnp.float32,
     d_offset: int = 0,
-    out_axes: int = -1,
 ) -> jnp.ndarray:
-    """(H, W, D) census hamming cost volume for a rectified pair
-    (out_axes=1 -> (H, D, W), the Pallas fast-path layout, built directly
-    with no transpose).
+    """(H, W, D) census hamming cost volume for a rectified pair.
 
     cost[y, x, d] = hamming(census_L[y, x], census_R[y, x - d]).
     d_offset shifts the candidate range to [d_offset, d_offset + D) — the
@@ -85,8 +78,7 @@ def census_cost_volume(
         return jnp.where(x < d, jnp.asarray(n_bits, dtype=dtype), c)
 
     d_idx = d_offset + jnp.arange(num_disparities, dtype=jnp.int32)
-    vol = jax.vmap(cost_at, out_axes=out_axes)(d_idx)
-    return vol
+    return jax.vmap(cost_at, out_axes=-1)(d_idx)
 
 
 def _roll_x(arr: jnp.ndarray, d: jnp.ndarray) -> jnp.ndarray:
@@ -108,10 +100,8 @@ def birchfield_tomasi_volume(
     clip: float = 32.0,
     dtype=jnp.float32,
     d_offset: int = 0,
-    out_axes: int = -1,
 ) -> jnp.ndarray:
-    """(H, W, D) Birchfield-Tomasi sampling-insensitive absolute difference
-    (out_axes=1 -> (H, D, W)).
+    """(H, W, D) Birchfield-Tomasi sampling-insensitive absolute difference.
 
     BT(xL, xR) = max(0, I_L(xL) - max window_R, min window_R - I_L(xL))
     symmetrized, where window_R is the half-pixel interpolated neighbourhood
@@ -143,7 +133,7 @@ def birchfield_tomasi_volume(
         return jnp.where(x < d, jnp.asarray(clip, dtype=dtype), c)
 
     d_idx = d_offset + jnp.arange(num_disparities, dtype=jnp.int32)
-    return jax.vmap(cost_at, out_axes=out_axes)(d_idx)
+    return jax.vmap(cost_at, out_axes=-1)(d_idx)
 
 
 def fused_cost_volume(
@@ -155,34 +145,24 @@ def fused_cost_volume(
     bt_clip: float = 32.0,
     dtype=jnp.float32,
     d_offset: int = 0,
-    layout: str = "hwd",
 ) -> jnp.ndarray:
     """Census hamming + weighted BT — the production matching cost
-    (PlaneSweep/SGM configs 1-2 in BASELINE.json).
-
-    layout: "hwd" -> (H, W, D) with D minor (the default, D rides lanes);
-    "hdw" -> (H, D, W) with W minor — the layout of the fast Pallas SGM
-    path (``ops/sgm_pallas.py``): W=image width fills the 128-wide lane
-    axis completely (D is usually 64 < 128, which would waste half the
-    VPU in "hwd"), and the d±1 SGM couplings become sublane shifts."""
-    if layout not in ("hwd", "hdw"):
-        raise ValueError(f"unknown layout {layout!r}")
-    ax = 1 if layout == "hdw" else -1
+    (PlaneSweep/SGM configs 1-2 in BASELINE.json), (H, W, D)."""
     out_dtype = jnp.dtype(dtype)
     integer_costs = jnp.issubdtype(out_dtype, jnp.integer)
     # integer mode: build in f32, scale by COST_SCALE, round into the
-    # integer dtype (XLA fuses the conversion into the producer — a single
-    # int16 volume write, HALF the HBM traffic of f32; the SGM penalties
-    # must be scaled by the same factor, see models/two_view.py)
+    # integer dtype (XLA fuses the conversion into the producer, so the
+    # volume is written once at half the bytes of f32; the SGM penalties
+    # are scaled by the same factor, models/two_view.py::aggregate_costs)
     build_dtype = jnp.float32 if integer_costs else out_dtype
     vol = census_cost_volume(
         left, right, num_disparities, census_window, dtype=build_dtype,
-        d_offset=d_offset, out_axes=ax,
+        d_offset=d_offset,
     )
     if bt_weight > 0.0:
         vol = vol + bt_weight * birchfield_tomasi_volume(
             left, right, num_disparities, clip=bt_clip, dtype=build_dtype,
-            d_offset=d_offset, out_axes=ax,
+            d_offset=d_offset,
         )
     if integer_costs:
         vol = jnp.round(vol * cost_scale_for(out_dtype)).astype(out_dtype)
@@ -194,10 +174,7 @@ def right_from_left_volume(vol: jnp.ndarray) -> jnp.ndarray:
     cost_R[y, x, d] = cost_L[y, x + d, d]. Used by the left-right consistency
     check without building a second volume.
 
-    Implemented as one edge-clamped column shift per d-slice (vmap over D)
-    rather than a 3D ``take_along_axis`` — the general gather lowers to a
-    scalar-indexed loop on TPU (measured ~170x slower than the per-slice
-    form at 540x768x64)."""
+    Implemented as one edge-clamped column shift per d-slice (vmap over D)."""
     h, w, D = vol.shape
 
     def shift_slice(slice_d: jnp.ndarray, d: jnp.ndarray) -> jnp.ndarray:

@@ -1,28 +1,25 @@
-"""Per-pixel hat-weighted column sampling — the TPU gather substitute,
-as ONE Pallas pass.
+"""Per-pixel bilinear column sampling along image rows.
 
 ``hat_sample(values, t, k0, k1)`` computes
 
     out(y, x) = sum_{k=k0}^{k1} max(0, 1 - |t(y,x) - k|) * values(y, x-k)
 
-with edge-replicated columns — i.e. a bilinear sample of ``values`` at
-``x - t(y,x)`` wherever ``t`` lies in ``[k0, k1]`` (the hat weights of the
-two straddling integer taps are the bilinear coefficients; all other taps
-weigh 0). This is the smooth-cascade residual warp and its decode sampler
-(``models/cascade.py``): a per-pixel gather is illegal/serializing on TPU
-(ops/wta.py gather gotcha), and the XLA one-hot chain re-reads the map
-from HBM per tap (~0.6 ms at 89 taps, 540x768 — probe_cascade2_stages).
-Here every tap is a STATIC lane-slice of a VMEM-resident padded block
-(no dynamic offsets, no rolls — both illegal/slow on this toolchain),
-so the pass is traffic-bound: ~3 map reads total regardless of taps.
+with edge-replicated columns and ``t`` clamped to ``[k0, k1]``: a bilinear
+sample of ``values`` at ``x - t(y, x)``. Only the two integer taps that
+straddle ``t`` have nonzero hat weight, so the sum is a floor, two
+``take_along_axis`` gathers and a lerp. This is the smooth-cascade
+residual warp and its decode sampler (``models/cascade.py``,
+``models/cascade_sweep.py``), replacing the reference's per-pixel epipolar
+candidate addressing (reference ``src/CameraStereoVision.cpp:73-83``)
+at the warp level.
 
 ``aux`` (optional, a 1D per-column table, e.g. the cascade's column field
-``g``) is sampled with the SAME weights in the same pass:
+``g``) is sampled with the same two weights:
 
     aux_out(y, x) = sum_k hat(t - k) * aux(x - k)
 
-Replaces the reference's per-pixel epipolar candidate addressing
-(``/root/reference/src/CameraStereoVision.cpp:73-83``) at the warp level.
+``hat_sample_reference`` is the hat-weighted tap sum written out over
+every tap, the oracle the sampler is checked against.
 """
 
 from __future__ import annotations
@@ -32,102 +29,58 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-__all__ = ["hat_sample"]
+__all__ = ["hat_sample", "hat_sample_reference"]
 
 
-def _kernel(p_ref, t_ref, out_ref, *, k0, k1, w):
-    t = t_ref[...]
-    out = jnp.zeros_like(t)
-    for k in range(k0, k1 + 1):
-        sl = p_ref[:, k1 - k : k1 - k + w]
-        wgt = jnp.maximum(0.0, 1.0 - jnp.abs(t - float(k)))
-        out = out + wgt * sl
-    out_ref[...] = out
-
-
-def _kernel_aux(p_ref, t_ref, aux_ref, out_ref, aux_out_ref, *, k0, k1, w):
-    t = t_ref[...]
-    out = jnp.zeros_like(t)
-    aout = jnp.zeros_like(t)
-    for k in range(k0, k1 + 1):
-        sl = p_ref[:, k1 - k : k1 - k + w]
-        asl = aux_ref[:, k1 - k : k1 - k + w]
-        wgt = jnp.maximum(0.0, 1.0 - jnp.abs(t - float(k)))
-        out = out + wgt * sl
-        aout = aout + wgt * asl
-    out_ref[...] = out
-    aux_out_ref[...] = aout
-
-
-def _pad_cols(a: jnp.ndarray, left: int, right: int) -> jnp.ndarray:
-    """Edge-replicate pad along the last axis."""
-    parts = []
-    if left > 0:
-        parts.append(a[..., :1].repeat(left, axis=-1))
-    parts.append(a)
-    if right > 0:
-        parts.append(a[..., -1:].repeat(right, axis=-1))
-    return jnp.concatenate(parts, axis=-1) if len(parts) > 1 else a
-
-
-@functools.partial(jax.jit, static_argnames=("k0", "k1", "block_rows",
-                                             "interpret"))
+@functools.partial(jax.jit, static_argnames=("k0", "k1"))
 def hat_sample(
     values: jnp.ndarray,
     t: jnp.ndarray,
     k0: int,
     k1: int,
     aux: Optional[jnp.ndarray] = None,
-    block_rows: int = 8,
-    interpret: bool = False,
 ):
     """See module docstring. values/t: (H, W) f32; aux: (W,) f32 or None.
 
-    Returns ``out`` or ``(out, aux_out)``. Note the hat identity
-    ``sum_k hat(t - k) * k == clip(t, k0, k1)`` — callers needing
-    ``field + t`` terms can add ``t`` directly instead of folding ``k``
-    into ``aux``."""
+    Returns ``out`` or ``(out, aux_out)``. The two weights sum to 1 and
+    their mean tap is ``clip(t, k0, k1)``, so callers needing ``field + t``
+    terms can add the clipped ``t`` directly instead of folding ``k`` into
+    ``aux``."""
     h, w = values.shape
-    left, right = max(k1, 0), max(-k0, 0)
-    want = w + left + right
-    # padded[:, j] = values[:, j - left] edge-replicated, so tap k's slice
-    # [k1-k, k1-k+w) reads values(x - k) for every k in [k0, k1]
-    padded = _pad_cols(values.astype(jnp.float32), left, right)
-    t = t.astype(jnp.float32)
+    values = values.astype(jnp.float32)
+    t = jnp.clip(t.astype(jnp.float32), float(k0), float(k1))
+    k_lo = jnp.floor(t)
+    frac = t - k_lo
+    src = jnp.arange(w, dtype=jnp.int32)[None, :] - k_lo.astype(jnp.int32)
+    i_lo = jnp.clip(src, 0, w - 1)  # tap k_lo
+    i_hi = jnp.clip(src - 1, 0, w - 1)  # tap k_lo + 1 (weight 0 at t == k1)
 
-    nblocks = -(-h // block_rows)
-    spec_p = pl.BlockSpec((block_rows, want), lambda i: (i, 0),
-                          memory_space=pltpu.VMEM)
-    spec_t = pl.BlockSpec((block_rows, w), lambda i: (i, 0),
-                          memory_space=pltpu.VMEM)
-    params = pltpu.CompilerParams(vmem_limit_bytes=96 * 1024 * 1024)
+    def sample(table):
+        lo = jnp.take_along_axis(table, i_lo, axis=1)
+        hi = jnp.take_along_axis(table, i_hi, axis=1)
+        return lo + frac * (hi - lo)
 
+    out = sample(values)
     if aux is None:
-        return pl.pallas_call(
-            functools.partial(_kernel, k0=k0, k1=k1, w=w),
-            grid=(nblocks,),
-            in_specs=[spec_p, spec_t],
-            out_specs=spec_t,
-            out_shape=jax.ShapeDtypeStruct((h, w), jnp.float32),
-            compiler_params=params,
-            interpret=interpret,
-        )(padded, t)
+        return out
+    aux_rows = jnp.broadcast_to(aux.astype(jnp.float32)[None, :], (h, w))
+    return out, sample(aux_rows)
 
-    aux_p = _pad_cols(aux.astype(jnp.float32)[None, :], left, right)
-    spec_a = pl.BlockSpec((1, want), lambda i: (0, 0),
-                          memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        functools.partial(_kernel_aux, k0=k0, k1=k1, w=w),
-        grid=(nblocks,),
-        in_specs=[spec_p, spec_t, spec_a],
-        out_specs=(spec_t, spec_t),
-        out_shape=(
-            jax.ShapeDtypeStruct((h, w), jnp.float32),
-            jax.ShapeDtypeStruct((h, w), jnp.float32),
-        ),
-        compiler_params=params,
-        interpret=interpret,
-    )(padded, t, aux_p)
+
+def hat_sample_reference(values, t, k0: int, k1: int, aux=None):
+    """The hat-weighted sum over every tap ``k0..k1`` (plain jnp), with the
+    same clamping and edge replication as :func:`hat_sample`."""
+    h, w = values.shape
+    values = jnp.asarray(values, jnp.float32)
+    t = jnp.clip(jnp.asarray(t, jnp.float32), float(k0), float(k1))
+    x = jnp.arange(w)
+    out = jnp.zeros((h, w), jnp.float32)
+    aout = jnp.zeros((h, w), jnp.float32)
+    for k in range(k0, k1 + 1):
+        cols = jnp.clip(x - k, 0, w - 1)
+        wgt = jnp.maximum(0.0, 1.0 - jnp.abs(t - float(k)))
+        out = out + wgt * values[:, cols]
+        if aux is not None:
+            aout = aout + wgt * jnp.asarray(aux, jnp.float32)[cols][None, :]
+    return out if aux is None else (out, aout)

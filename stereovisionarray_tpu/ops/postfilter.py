@@ -7,8 +7,8 @@ knocks out single-pixel outliers the parabola can't fix, and a speckle
 filter suppresses small floating blobs of locally-consistent-but-wrong
 disparity that survive the LR check.
 
-TPU shapes: the median is a 9-element sorting network (19 min/max pairs)
-over shifted copies — pure VPU, no gathers; the speckle filter is the
+Program shapes: the median is a 9-element sorting network (19 min/max
+pairs) over shifted copies — elementwise only, no gathers; the speckle filter is the
 O(HW) windowed-support approximation (box-count of similar-disparity
 neighbours) instead of exact connected components (whose iteration count
 is data-dependent — hostile to XLA's static control flow).
@@ -99,7 +99,7 @@ def speckle_filter(
 
     Method: EXACT windowed support — for every pixel, count window
     neighbours whose disparity is within `max_diff` of the pixel's own
-    (window² shifted compares, all VPU passes over (H, W); ~100 MB of
+    (window² shifted compares, all elementwise passes over (H, W); ~100 MB of
     traffic at 540x768 with window=9 — cheap). Per-side counting means
     depth discontinuities keep both surfaces (each side supports itself),
     unlike local-mean schemes."""
@@ -121,7 +121,7 @@ def _propagate(disp: jnp.ndarray, valid: jnp.ndarray, dx: int, span: int):
     """Nearest-valid value along +-x via log-doubling jumps.
 
     Equivalent to a serial scan carrying the last valid disparity, but in
-    ceil(log2(span)) shifted select passes over (H, W) — the TPU-friendly
+    ceil(log2(span)) shifted select passes over (H, W) — the data-parallel
     parallel-prefix form (a 768-step lax.scan would dispatch 768 tiny ops).
     dx=+1 propagates left values rightward; dx=-1 the reverse. Pixels with
     no valid source within `span` stay unfilled."""
@@ -163,7 +163,7 @@ def fill_holes(
     (inverse-depth plane sweeps: index 0 = z_near, so background = larger
     index — models/cascade_sweep.py).
 
-    Pure VPU: two log-doubling nearest-valid propagations + one select;
+    Elementwise only: two log-doubling nearest-valid propagations + one select;
     no gathers, no data-dependent shapes. Returns (filled, filled_valid);
     filled_valid marks pixels that are valid OR were filled (rows that are
     entirely invalid stay unfilled)."""

@@ -1,6 +1,6 @@
 """Multi-view photoconsistency disparity refinement.
 
-TPU-native generalization of the reference's `improveWithDisparity`
+Vectorized generalization of the reference's `improveWithDisparity`
 (``/root/reference/src/functions.cpp:11-52``): warp each auxiliary view into
 the reference view with the current disparity, then locally search a small
 offset window around the current value, scoring each candidate by a
@@ -36,7 +36,7 @@ _BIG = 1e9
 def box_filter2d(x: jnp.ndarray, k: int) -> jnp.ndarray:
     """Sum over a k x k window (same spatial shape, zero padding: border
     windows sum only in-bounds elements) via two separable cumsum passes —
-    O(HW) regardless of k, the TPU-shaped replacement for the reference's
+    O(HW) regardless of k, the whole-array replacement for the reference's
     per-candidate 21x21 patch extraction
     (``/root/reference/src/functions.cpp:30-34``).
 
@@ -96,7 +96,7 @@ def _static_shift(padded: jnp.ndarray, su: float, sv: float, pad: int,
     (su, sv) — pure ``lax.slice`` + lerp. Unlike ``_uniform_shift`` (dynamic
     starts), a static shift stays a fused full-bandwidth copy even inside a
     vmap/loop (vmapping ``dynamic_slice`` over traced starts lowers to a
-    serialized gather on TPU)."""
+    gather)."""
     j0 = int(np.floor(sv))
     i0 = int(np.floor(su))
     fv = float(sv - j0)
@@ -156,8 +156,7 @@ def multiview_refine(
         literal objective). The default (False) warps each view ONCE at the
         current disparity and realizes the ±delta candidates as UNIFORM
         shifts of that warped image — V gathers instead of V*(2r+1)
-        (measured 24 vs 264 at the 5x5 array: ~8x less refine time on TPU,
-        where per-pixel gathers serialize). The approximation evaluates the
+        (24 vs 264 at the 5x5 array). The approximation evaluates the
         disparity field at x+delta*b instead of x — exact for locally
         constant disparity, O(delta * |grad d|) elsewhere; with the default
         radius 5 px the difference is below the photoconsistency noise
@@ -174,7 +173,7 @@ def multiview_refine(
 
     bl = None if exact_warp else _concrete_baselines(baselines_uv)
     if bl is not None and max_disparity is not None and max_disparity > 0:
-        # ---- static candidate-stack path (the TPU fast path) ---------- #
+        # ---- static candidate-stack path (the fast path) -------------- #
         # Baseline directions are host constants, so every candidate warp
         # position s (integer pixel steps along the epipolar line) is a
         # STATIC subpixel shift: build the (K, H, W) candidate stack with
@@ -359,11 +358,10 @@ def multiview_refine(
 def _select_best(costs, any_valid, offsets, disparity, mask, num, step, subpixel):
     """WTA + parabola over the offset axis, shared by all warp paths.
 
-    All per-pixel lookups along the O axis run as one-hot select-sums,
-    NOT take_along_axis: a per-pixel gather serializes on TPU and
-    measured as a FLAT ~4.7 ms floor for the whole refine stage at
-    270x360 (independent of radius and stack size); O <= 2r+1 selects
-    are vectorized elementwise work. delta is pure arithmetic (the
+    All per-pixel lookups along the O axis run as one-hot select-sums
+    (O <= 2r+1 selects of vectorized elementwise work) instead of
+    take_along_axis; whether a gather is faster on the GPU is not
+    measured yet. delta is pure arithmetic (the
     offsets grid is uniform)."""
     best = jnp.argmin(costs, axis=0)  # (H, W) int
     best_cost = jnp.min(costs, axis=0)

@@ -13,13 +13,20 @@ generalizes that into the standard smoothness-regularized recurrence
 
 aggregated over 4 or 8 path directions r.
 
-TPU mapping: the recurrence is sequential only along the scan direction; the
-carry is the full (W, D) [or (H, D)] wavefront, so every scan step is a dense
-VPU op over W*D lanes — exactly the "wavefront parallel across the
+The recurrence is sequential only along the scan direction; the carry is
+the full (W, D) [or (H, D)] wavefront, so every scan step is one dense
+elementwise op over W*D values — the "wavefront parallel across the
 perpendicular axis" design from SURVEY.md §7. Diagonal paths reuse the row
-scan with the carry shifted one column per step. All 8 paths and both scan
-orientations run as independent scans that XLA schedules back-to-back over
-the same HBM-resident cost volume.
+scan with the carry shifted one column per step.
+
+Two implementations of the same recurrence, chosen by ``backend``:
+``"xla"`` runs one ``lax.scan`` per path; ``"pallas"`` runs the Triton
+kernel of ``ops/sgm_triton.py`` (one launch per path, the scan loop inside
+the kernel); ``"pallas_interpret"`` runs that kernel in the Pallas
+interpreter (CPU tests). Integer volumes (the fixed-point costs of
+``CostConfig.dtype``) are aggregated exactly and returned as int32: the
+kernel carries int32, the XLA scan computes in float32, which is exact
+for these integer magnitudes.
 
 ``sgm_aggregate_reference`` is the deliberately-slow numpy-style oracle used
 by the golden tests (SURVEY.md §4: "SGM single-path recurrence vs tiny
@@ -145,7 +152,7 @@ def _edge_p2(image: jnp.ndarray, axis: int, p2: float, p2_min: float, dtype) -> 
 ALL_PATH_IDS = (0, 1, 2, 3, 4, 5, 6, 7)
 
 
-@functools.partial(jax.jit, static_argnames=("path_ids", "adaptive_p2"))
+@functools.partial(jax.jit, static_argnames=("path_ids", "adaptive_p2", "backend"))
 def sgm_aggregate_paths(
     vol: jnp.ndarray,
     p1: float = 8.0,
@@ -154,22 +161,49 @@ def sgm_aggregate_paths(
     image: Optional[jnp.ndarray] = None,
     adaptive_p2: bool = False,
     p2_min: float = 24.0,
+    backend: str = "xla",
 ) -> jnp.ndarray:
     """Aggregate an (H, W, D) cost volume over the given subset of the 8 SGM
     paths. The subset form is the unit of *path parallelism*: the ``disp``
     mesh axis splits ``ALL_PATH_IDS`` across shards and ``psum``s the partial
-    sums (parallel/two_view.py), since total = sum over independent paths."""
-    h, w, D = vol.shape
-    dtype = vol.dtype
-    p1 = jnp.asarray(p1, dtype)
+    sums (parallel/two_view.py), since total = sum over independent paths.
 
+    backend: a resolved backend (``backend.resolve_backend``): "xla",
+    "pallas" or "pallas_interpret". Float volumes return float32 (the
+    input dtype); integer volumes return the exact int32 sum, with P1/P2
+    taken in the volume's fixed-point units."""
+    h, w, D = vol.shape
+    integer = jnp.issubdtype(vol.dtype, jnp.integer)
+    # integer P2 maps are rounded in int32, as the fixed-point costs are
+    map_dtype = jnp.int32 if integer else vol.dtype
     if adaptive_p2 and image is not None:
-        p2_y = _edge_p2(image, 0, p2, p2_min, dtype)[..., None]  # (H, W, 1)
-        p2_x = _edge_p2(image, 1, p2, p2_min, dtype)[..., None]
+        p2_y = _edge_p2(image, 0, p2, p2_min, map_dtype)
+        p2_x = _edge_p2(image, 1, p2, p2_min, map_dtype)
     else:
-        p2_y = jnp.broadcast_to(jnp.asarray(p2, dtype), (h, w, 1))
+        p2_y = jnp.full((h, w), p2, map_dtype)
         p2_x = p2_y
 
+    if backend in ("pallas", "pallas_interpret"):
+        from stereovisionarray_tpu.ops.sgm_triton import aggregate_paths
+
+        return aggregate_paths(
+            vol, jnp.asarray(p1, map_dtype), p2_y, p2_x, tuple(path_ids),
+            interpret=backend == "pallas_interpret",
+        )
+    if backend != "xla":
+        raise ValueError(f"unknown SGM backend {backend!r}")
+
+    dtype = jnp.float32 if integer else vol.dtype
+    out_dtype = vol.dtype if not integer else jnp.int32
+    vol = vol.astype(dtype)
+    p1 = jnp.asarray(p1, dtype)
+    p2_y = p2_y.astype(dtype)[..., None]  # (H, W, 1)
+    p2_x = p2_x.astype(dtype)[..., None]
+    total = _xla_paths(vol, p1, p2_y, p2_x, path_ids)
+    return total.astype(out_dtype)
+
+
+def _xla_paths(vol, p1, p2_y, p2_x, path_ids):
     total = jnp.zeros_like(vol)
     fv = jnp.flip(vol, 0)
     fp = jnp.flip(p2_y, 0)
@@ -207,7 +241,7 @@ def sgm_aggregate_paths(
     return total
 
 
-@functools.partial(jax.jit, static_argnames=("num_paths", "adaptive_p2"))
+@functools.partial(jax.jit, static_argnames=("num_paths", "adaptive_p2", "backend"))
 def sgm_aggregate(
     vol: jnp.ndarray,
     p1: float = 8.0,
@@ -216,11 +250,13 @@ def sgm_aggregate(
     image: Optional[jnp.ndarray] = None,
     adaptive_p2: bool = False,
     p2_min: float = 24.0,
+    backend: str = "xla",
 ) -> jnp.ndarray:
     """Aggregate an (H, W, D) cost volume over 4 or 8 SGM paths.
 
-    Returns the summed path costs (H, W, D) in vol.dtype (float32
-    recommended; int accumulation happens in the Pallas kernel variant).
+    Returns the summed path costs (H, W, D): float32 for float volumes,
+    int32 for integer (fixed-point) volumes. See
+    :func:`sgm_aggregate_paths` for ``backend``.
 
     image: (H, W) grayscale used for edge-adaptive P2 when adaptive_p2.
     """
@@ -234,22 +270,30 @@ def sgm_aggregate(
         image=image,
         adaptive_p2=adaptive_p2,
         p2_min=p2_min,
+        backend=backend,
     )
 
 
 # ---------------------------------------------------------------------- #
 # Slow oracle for tests
 # ---------------------------------------------------------------------- #
+# path id -> (dy, dx) direction of travel, ids per ALL_PATH_IDS
+_PATH_DIRS = {0: (1, 0), 1: (-1, 0), 2: (0, 1), 3: (0, -1),
+              4: (1, 1), 5: (1, -1), 6: (-1, 1), 7: (-1, -1)}
+
+
 def sgm_aggregate_reference(
-    vol: np.ndarray, p1: float, p2: float, num_paths: int = 8
+    vol: np.ndarray, p1: float, p2: float, num_paths: int = 8,
+    path_ids: Optional[tuple] = None,
 ) -> np.ndarray:
     """Tiny dynamic-program oracle (pure numpy, per-pixel loops) used by the
-    golden tests to validate the scan kernels. Constant P2 only."""
+    golden tests to validate the scan kernels. Constant P2 only.
+    ``path_ids`` (ids per ALL_PATH_IDS) overrides ``num_paths``."""
     vol = np.asarray(vol, dtype=np.float64)
     h, w, D = vol.shape
-    dirs = [(0, 1), (0, -1), (1, 0), (-1, 0)]
-    if num_paths == 8:
-        dirs += [(1, 1), (1, -1), (-1, 1), (-1, -1)]
+    if path_ids is None:
+        path_ids = ALL_PATH_IDS[:num_paths]
+    dirs = [_PATH_DIRS[p] for p in path_ids]
     total = np.zeros_like(vol)
     for dy, dx in dirs:
         L = np.zeros_like(vol)

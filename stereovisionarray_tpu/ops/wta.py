@@ -22,8 +22,7 @@ INVALID_DISPARITY = jnp.float32(-1.0)
 def _value_at(vol: jnp.ndarray, d: jnp.ndarray) -> jnp.ndarray:
     """vol (..., D) at index d (...,) -> (...,) via a one-hot reduction.
 
-    ``take_along_axis`` on the minor axis lowers to a slow scalar gather on
-    TPU; a masked sum is one fused VPU pass over the volume instead."""
+    A masked sum is one fused elementwise pass over the volume."""
     idx = jax.lax.broadcasted_iota(jnp.int32, vol.shape, vol.ndim - 1)
     return jnp.sum(jnp.where(idx == d[..., None], vol, 0), axis=-1)
 
@@ -83,7 +82,7 @@ def left_right_check(
     h, w = disp_left.shape
     x = jnp.arange(w)[None, :]
     xr = jnp.clip(jnp.round(x - disp_left).astype(jnp.int32), 0, w - 1)
-    d_r = jnp.take_along_axis(disp_right, xr, axis=1)  # 2D gather: fine on TPU
+    d_r = jnp.take_along_axis(disp_right, xr, axis=1)
     ok = jnp.abs(disp_left - d_r) <= max_diff
     return ok & (disp_left >= 0) & (d_r >= 0)
 
@@ -104,7 +103,7 @@ def disparity_from_volume(
     mask: optional (H, W) bool ROI gate — the face-mask role from the
     reference (``/root/reference/src/CameraStereoVision.cpp:53``), applied to
     the *output* instead of gating compute (dense compute + select is the
-    TPU-shaped version of a sparse pixel loop)."""
+    whole-array version of a sparse pixel loop)."""
     d_int, c = winner_take_all(vol)
     disp = subpixel_refine(vol, d_int) if subpixel else d_int.astype(vol.dtype)
     valid = jnp.ones(disp.shape, dtype=bool)

@@ -1,9 +1,9 @@
-"""Multi-chip sharding layer — the scale-out path the reference lacks.
+"""Multi-device sharding layer — the scale-out path the reference lacks.
 
 The reference is one process, one thread (SURVEY.md §0: zero threading /
 MPI / socket includes anywhere; its hot loop is a nested per-pixel ``for``
 at ``/root/reference/src/CameraStereoVision.cpp:49-95``). Here scale-out is
-expressed the TPU way: a ``jax.sharding.Mesh`` with named axes
+expressed as a ``jax.sharding.Mesh`` with named axes
 
   - ``data``: independent stereo problems (camera pairs / keyframes) —
     pure data parallelism (SURVEY.md §2.2 P1);
@@ -13,8 +13,8 @@ expressed the TPU way: a ``jax.sharding.Mesh`` with named axes
     domain's sequence/context-parallel analogue, partial WTA minima
     combined with an all-gather min-reduce (P3).
 
-XLA schedules all collectives over ICI/DCN (P6) — there is no hand-written
-communication backend, by design.
+XLA schedules all collectives (NCCL over NVLink between the cards of a GPU
+host; P6) — there is no hand-written communication backend, by design.
 """
 
 from stereovisionarray_tpu.parallel.mesh import (  # noqa: F401

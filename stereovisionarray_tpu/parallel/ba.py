@@ -7,7 +7,7 @@ features x keyframes) is sharded across every mesh device; cameras, points,
 and the LM/CG state are replicated. All block assemblies and the two
 segment-sums inside each CG matvec end in one ``psum`` (sfm/ba.py's
 ``allreduce`` hook), so each shard computes partial normal-equation blocks
-from its own observations and XLA reduces them over ICI. Every device runs
+from its own observations and XLA reduces them across devices. Every device runs
 the identical replicated solve — results are bit-identical across shards,
 and identical to the single-device ``bundle_adjust`` up to float reduction
 order (tested in tests/test_parallel.py).

@@ -37,6 +37,7 @@ from stereovisionarray_tpu.models.plane_sweep import (
     PlaneSweepOutput,
     plane_sweep_volume,
 )
+from stereovisionarray_tpu.backend import resolve_backend
 from stereovisionarray_tpu.ops.sgm import sgm_aggregate_paths
 from stereovisionarray_tpu.ops.wta import subpixel_refine, winner_take_all
 from stereovisionarray_tpu.parallel.mesh import AXIS_DATA, AXIS_DISP, AXIS_TILE
@@ -102,7 +103,7 @@ def _cascade_program(
         # so the fine sweep shards with zero communication
         j = (disp_idx * df_local + jnp.arange(df_local)).astype(dtype)
         fine_shifts = c[:, None, :] * j[None, :, None]  # (S, df_local, 2)
-        cfg_f = dataclasses.replace(cfg, num_planes=df, sources_8bit=False)
+        cfg_f = dataclasses.replace(cfg, num_planes=df)
         depths_loc = lax.dynamic_slice(
             depths_full, (disp_idx * df_local,), (df_local,)
         )
@@ -114,7 +115,6 @@ def _cascade_program(
             cfg_f,
             shift_pad=shift_pad,
             depths=depths_loc,
-            backend=backend,
             shifts=fine_shifts,
         )
         if n_disp > 1:
@@ -127,6 +127,7 @@ def _cascade_program(
                 image=ref,
                 adaptive_p2=sgm_cfg.adaptive_p2,
                 p2_min=sgm_cfg.p2_min,
+                backend=resolve_backend(backend),
             )
             if n_disp == 1:
                 vol = sgm_aggregate_paths(vol, path_ids=path_chunks[0], **sgm_kwargs)

@@ -5,10 +5,11 @@ Axis semantics (SURVEY.md §2.2):
   tile — image rows (halo-coupled spatial tiles)
   disp — disparity candidates (cost-volume shard axis)
 
-On a real pod slice the ``data`` axis should map to DCN (across hosts) and
-``tile``/``disp`` to ICI (within a slice): ``mesh_utils.create_device_mesh``
-handles the physical assignment; axis *order* here puts ``data`` outermost
-accordingly.
+The cards of one GPU host are joined all to all by NVLink, so every
+device pair is equally close and the mesh follows the algorithm alone:
+devices fill the (data, tile, disp) grid in order. ``data`` is outermost,
+so a multi-host run would put it across hosts, where only the final maps
+cross the network.
 """
 
 from __future__ import annotations
@@ -17,7 +18,6 @@ from typing import Optional, Sequence
 
 import jax
 import numpy as np
-from jax.experimental import mesh_utils
 from jax.sharding import Mesh
 
 AXIS_DATA = "data"
@@ -46,7 +46,7 @@ def make_mesh(
         raise ValueError(
             f"mesh {data}x{tile}x{disp} = {data * tile * disp} != {n} devices"
         )
-    dev_array = mesh_utils.create_device_mesh((data, tile, disp), devices=list(devices))
+    dev_array = np.asarray(list(devices), dtype=object).reshape(data, tile, disp)
     return Mesh(dev_array, AXES)
 
 

@@ -1,9 +1,9 @@
 """Mesh-sharded N-view plane-sweep depth — BASELINE.json config 3 at
-multi-chip scale (VERDICT r1 item 7: config 3 previously had no sharded
+multi-device scale (VERDICT r1 item 7: config 3 previously had no sharded
 implementation).
 
 Sharding map (generalizing ``/root/reference/src/functions.cpp:55-103`` —
-the per-pair perspective-shift warps — the TPU way):
+the per-pair perspective-shift warps):
 
   data axis — frame-sets (B): embarrassingly parallel;
   disp axis — depth PLANES: each shard sweeps its own chunk of the
@@ -37,6 +37,7 @@ from stereovisionarray_tpu.models.plane_sweep import (
     PlaneSweepOutput,
     plane_sweep_volume,
 )
+from stereovisionarray_tpu.backend import resolve_backend
 from stereovisionarray_tpu.ops.sgm import sgm_aggregate_paths
 from stereovisionarray_tpu.ops.wta import subpixel_refine, winner_take_all
 from stereovisionarray_tpu.parallel.mesh import AXIS_DATA, AXIS_DISP, AXIS_TILE
@@ -92,7 +93,7 @@ def _plane_sweep_program(
         depths_loc = lax.dynamic_slice(depths_all, (disp_idx * d_local,), (d_local,))
         vol, nv, _ = plane_sweep_volume(
             imgs, cameras, ref_index, src_indices, cfg,
-            shift_pad=shift_pad, depths=depths_loc, backend=backend,
+            shift_pad=shift_pad, depths=depths_loc,
         )
         if n_disp > 1:
             vol = lax.all_gather(vol, AXIS_DISP, axis=-1, tiled=True)
@@ -105,6 +106,7 @@ def _plane_sweep_program(
                 image=imgs[ref_index],
                 adaptive_p2=sgm_cfg.adaptive_p2,
                 p2_min=sgm_cfg.p2_min,
+                backend=resolve_backend(backend),
             )
             if n_disp == 1:
                 vol = sgm_aggregate_paths(vol, path_ids=path_chunks[0], **sgm_kwargs)
@@ -119,8 +121,6 @@ def _plane_sweep_program(
         k = subpixel_refine(vol, k_int)
         inv_depth = inv_near + k * step
         depth = 1.0 / jnp.maximum(inv_depth, 1e-9)
-        # one-hot select — take_along_axis is a serialized per-pixel
-        # gather on TPU (see models/plane_sweep.py; measured ~1 ms/lookup)
         d_sel = jax.lax.broadcasted_iota(jnp.int32, nv.shape, nv.ndim - 1)
         views_at_win = jnp.sum(
             jnp.where(d_sel == k_int[..., None], nv, 0), axis=-1
@@ -169,10 +169,8 @@ def sharded_plane_sweep_depth(
     The compiled program is cached per (mesh, configs, shapes); repeat
     calls skip tracing entirely (cameras are a runtime argument).
 
-    backend: volume-builder backend forwarded to ``plane_sweep_volume`` —
-    "auto" picks the fused Pallas MXU sweep kernel on TPU when the config
-    gates hold (census + mean-equivalent fusion + translation-only rig);
-    "xla" forces the chunked XLA chain (the pre-kernel numerics).
+    backend: SGM backend (``backend.py``): "auto" runs the Triton path
+    kernel on a GPU and the XLA scans on the CPU.
 
     Returns PlaneSweepOutput of (B, H, W) maps sharded along data.
     """

@@ -1,6 +1,6 @@
 """Sharded two-view SGM pipeline over a (data, tile, disp) mesh.
 
-The multi-chip realization of BASELINE.json config 5's stereo half
+The multi-device realization of BASELINE.json config 5's stereo half
 ("disparity-sharded cost volume"), replacing the reference's single-threaded
 pixel loop (``/root/reference/src/CameraStereoVision.cpp:49-95``) with:
 
@@ -16,16 +16,14 @@ pixel loop (``/root/reference/src/CameraStereoVision.cpp:49-95``) with:
       *subset of SGM paths* (path parallelism — total = sum over 8
       independent paths) combined with one ``psum``.
 
-All collectives (ppermute / all_gather / psum) are compiler-scheduled over
-ICI — no hand-written communication backend (SURVEY.md §2.2 P6).
+All collectives (ppermute / all_gather / psum) are compiler-scheduled
+(NCCL over NVLink on a GPU host) — no hand-written communication backend
+(SURVEY.md §2.2 P6).
 
-Backends: ``backend="pallas"`` (default on TPU) runs the SAME int16 Pallas
-kernels as the single-chip fast path inside shard_map — (H, D, W) layout,
-fused sweep SGM, one-pass extraction — with the disp axis splitting the 4
-sweep directions (down/up/lr/rl path groups) instead of individual path ids.
-``backend="xla"`` is the float32 scan path (any mesh shape);
-``backend="pallas_interpret"`` runs the kernels in interpreter mode for CPU
-tests.
+SGM aggregation runs on the ``backend`` of ``backend.py`` (the Triton path
+kernel on a GPU) in halo mode; exact tile mode relays XLA scan carries.
+Integer (fixed-point) costs aggregate to exact int32 sums, so the psum over
+path subsets and the carry relay reproduce the single-device sums exactly.
 """
 
 from __future__ import annotations
@@ -39,7 +37,14 @@ from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from stereovisionarray_tpu.config import CostConfig, SGMConfig
-from stereovisionarray_tpu.models.two_view import TwoViewOutput, disparity_to_depth
+from stereovisionarray_tpu.models.two_view import (
+    TwoViewOutput,
+    aggregate_costs,
+    cost_dtype,
+    cost_units,
+    disparity_to_depth,
+    sgm_penalties,
+)
 from stereovisionarray_tpu.ops.cost_volume import (
     fused_cost_volume,
     right_from_left_volume,
@@ -49,7 +54,6 @@ from stereovisionarray_tpu.ops.sgm import (
     _edge_p2,
     _scan_along_axis0,
     scan_with_carry,
-    sgm_aggregate_paths,
 )
 from stereovisionarray_tpu.ops.wta import disparity_from_volume, winner_take_all
 from stereovisionarray_tpu.parallel.halo import (
@@ -75,17 +79,6 @@ def _split_paths(num_paths: int, n_disp: int) -> list:
         )
     k = num_paths // n_disp
     return [tuple(ids[i * k : (i + 1) * k]) for i in range(n_disp)]
-
-
-# Pallas path parallelism works at sweep granularity (one fused kernel per
-# direction group): disp-shard i runs _SWEEP_CHUNKS[n_disp][i]. The 2-way
-# split pairs a vertical group (3 paths) with a horizontal one (1 path) so
-# both shards do comparable work.
-_SWEEP_CHUNKS = {
-    1: [("down", "up", "lr", "rl")],
-    2: [("down", "lr"), ("up", "rl")],
-    4: [("down",), ("up",), ("lr",), ("rl",)],
-}
 
 
 from stereovisionarray_tpu.backend import (
@@ -130,46 +123,6 @@ def _relay_scan(vol, p2_row, p1, diag_shift, reverse, n_tile):
 
     _, out = lax.fori_loop(0, n_tile, body, (big, jnp.zeros_like(v)))
     return jnp.flip(out, 0) if reverse else out
-
-
-def _relay_sweep_pallas(vol, p2_map, p1, reverse, n_tile, interpret):
-    """EXACT tile-sharded STACKED vertical sweep (Pallas backend twin of
-    :func:`_relay_scan`): round k seeds the 3-path-group sweep kernel with
-    shard k-1's outgoing (3D, W) front (``_sweep_hdw_stacked(init_carry=,
-    emit_final=True)``), relayed via ppermute. A BIG incoming front
-    reproduces fresh-start semantics exactly (the recurrence normalizes a
-    uniform carry to cost + 0), so round 0's first shard matches the
-    unsharded kernel bit for bit — verified in tests/test_parallel.py."""
-    from stereovisionarray_tpu.ops.sgm_pallas import (
-        _big_for,
-        _carry_dtype,
-        _sum_dtype,
-        _sweep_hdw_stacked,
-    )
-
-    s, d, n = vol.shape
-    my = lax.axis_index(AXIS_TILE)
-    pos = (n_tile - 1 - my) if reverse else my
-    if reverse:
-        src_dst = [(i, i - 1) for i in range(1, n_tile)]
-    else:
-        src_dst = [(i, i + 1) for i in range(n_tile - 1)]
-    cdt = _carry_dtype(vol.dtype)
-    big = jnp.full((3 * d, n), jnp.asarray(_big_for(cdt), cdt))
-
-    def body(k, state):
-        incoming, out = state
-        rows, final = _sweep_hdw_stacked(
-            vol, p2_map, p1, reverse, interpret,
-            init_carry=incoming, emit_final=True,
-        )
-        out = jnp.where(pos == k, rows, out)
-        nxt = lax.ppermute(final, AXIS_TILE, src_dst)
-        return nxt, out
-
-    out0 = jnp.zeros(vol.shape, _sum_dtype(vol.dtype))
-    _, out = lax.fori_loop(0, n_tile, body, (big, out0))
-    return out
 
 
 def _sgm_aggregate_exact(vol, p2_y, p2_x, p1, path_ids, n_tile):
@@ -231,17 +184,7 @@ def _two_view_program(
             f"({n_data}, {n_tile}, {n_disp})"
         )
     d_local = D // n_disp
-    use_pallas = resolved in ("pallas", "pallas_interpret")
-    interpret = resolved == "pallas_interpret"
     exact_tiles = tile_mode == "exact" and n_tile > 1
-    if exact_tiles and use_pallas and sgm_cfg.num_paths != 8:
-        # the Pallas relay seeds the STACKED (3-path-group) vertical sweep
-        # kernel; the 4-path variant keeps separate scratch carries the
-        # relay does not thread. The XLA backend relays any path set.
-        raise ValueError(
-            "tile_mode='exact' on the pallas backend supports num_paths=8 "
-            "only; use backend='xla' for 4-path exact tiling"
-        )
     if exact_tiles and n_disp > 1:
         # path-parallel chunks contain UNEVEN numbers of vertical paths
         # (e.g. {0,1,2,3} has 2 relays, {4,5,6,7} has 4): disp shards would
@@ -251,28 +194,8 @@ def _two_view_program(
             "tile_mode='exact' requires a disp axis of 1 (relay collectives "
             f"cannot sit inside uneven switch branches; got disp={n_disp})"
         )
-    dtype = jnp.dtype(cost_cfg.dtype)
-    integer_costs = jnp.issubdtype(dtype, jnp.integer)
-    if use_pallas:
-        from stereovisionarray_tpu.ops.cost_volume import cost_scale_for
-        from stereovisionarray_tpu.ops.extract_pallas import extract_disparity_hdw
-        from stereovisionarray_tpu.ops.sgm_pallas import sgm_aggregate_pallas_sweeps
-
-        if n_disp not in _SWEEP_CHUNKS:
-            raise ValueError(
-                f"pallas backend shards SGM at sweep granularity: disp axis "
-                f"must be 1, 2 or 4 (got {n_disp}); use backend='xla' for "
-                f"other splits"
-            )
-        sweep_chunks = _SWEEP_CHUNKS[n_disp]
-        pen_scale = cost_scale_for(dtype) if integer_costs else 1
-    else:
-        path_chunks = _split_paths(sgm_cfg.num_paths, n_disp)
-        if integer_costs:
-            # the XLA-scan SGM is float-only (int16 fixed-point is a Pallas
-            # backend feature, single-chip and sharded alike)
-            dtype = jnp.dtype(jnp.float32)
-            integer_costs = False
+    dtype = cost_dtype(cost_cfg)
+    path_chunks = _split_paths(sgm_cfg.num_paths, n_disp)
     if exact_tiles:
         # exact mode needs only the census half-window of image rows to make
         # boundary COSTS exact (census pads edge-mode, exactly what
@@ -304,175 +227,30 @@ def _two_view_program(
         # uneven switch branches would deadlock the mesh), so no all_gather
         vol = crop_halo(vol, use_halo, axis=0)
 
-        if sgm_cfg.adaptive_p2:
-            p2_y = crop_halo(
-                _edge_p2(l_ext, 0, sgm_cfg.p2, sgm_cfg.p2_min, dtype), use_halo, axis=0
-            )[..., None]
-            p2_x = crop_halo(
-                _edge_p2(l_ext, 1, sgm_cfg.p2, sgm_cfg.p2_min, dtype), use_halo, axis=0
-            )[..., None]
-        else:
-            shape = (vol.shape[0], W, 1)
-            p2_y = jnp.broadcast_to(jnp.asarray(sgm_cfg.p2, dtype), shape)
-            p2_x = p2_y
-
-        agg = _sgm_aggregate_exact(
-            vol, p2_y, p2_x, sgm_cfg.p1, path_chunks[0], n_tile
-        )
-
-        vol_right = right_from_left_volume(agg) if sgm_cfg.lr_max_diff > 0 else None
-        res = disparity_from_volume(
-            agg,
-            vol_right=vol_right,
-            subpixel=sgm_cfg.subpixel,
-            uniqueness=sgm_cfg.uniqueness,
-            lr_max_diff=sgm_cfg.lr_max_diff,
-            with_confidence=True,
-        )
-        return res.disparity, res.valid, res.cost, res.confidence
-
-    def _one_pair_pallas_exact(l_ext, r_ext, disp_idx) -> tuple:
-        """Exact tile sharding on the PRODUCTION int16/int8 Pallas kernels
-        (VERDICT r2 item 8): census-halo cost build, carry-relayed stacked
-        vertical sweeps (:func:`_relay_sweep_pallas`), complete-row
-        horizontal sweeps, one-pass extraction. Integer path sums
-        reassociate exactly, so the total — and the extracted maps — are
-        BIT-IDENTICAL to the single-chip ``sgm_aggregate_pallas_hdw`` +
-        ``extract_disparity_hdw`` at any tile count."""
-        from stereovisionarray_tpu.ops.sgm_pallas import (
-            _sum_dtype,
-            _sweep_hdw,
-            transpose_add_hdw,
-        )
-
-        pen = (lambda v: round(v * pen_scale)) if integer_costs else (lambda v: v)
-        vol = fused_cost_volume(
-            l_ext,
-            r_ext,
-            d_local,
-            census_window=cost_cfg.census_window,
-            bt_weight=cost_cfg.bt_weight,
-            bt_clip=cost_cfg.bt_clip,
-            dtype=dtype,
-            d_offset=0,  # n_disp == 1 enforced for exact mode
-            layout="hdw",
-        )
-        vol = crop_halo(vol, use_halo, axis=0)  # (h_local, D, W)
-        h_loc = vol.shape[0]
-
-        pdt = _sum_dtype(dtype)
+        # the relay scans in float32, as sgm_aggregate_paths' XLA path:
+        # integer costs and their rounded penalties are exact there
+        integer = jnp.issubdtype(dtype, jnp.integer)
+        pens = sgm_penalties(sgm_cfg, dtype)
+        map_dtype = jnp.int32 if integer else dtype
         if sgm_cfg.adaptive_p2:
             # gradients of the halo-extended rows == global gradients on
-            # the kept rows (the same bit-exactness argument as the XLA
-            # exact mode's p2 maps)
-            p2_y = crop_halo(
-                _edge_p2(l_ext, 0, pen(sgm_cfg.p2), pen(sgm_cfg.p2_min), pdt),
-                use_halo, axis=0,
-            )
-            p2_x = crop_halo(
-                _edge_p2(l_ext, 1, pen(sgm_cfg.p2), pen(sgm_cfg.p2_min), pdt),
-                use_halo, axis=0,
+            # the kept rows
+            p2_y, p2_x = (
+                crop_halo(_edge_p2(l_ext, ax, pens["p2"], pens["p2_min"], map_dtype),
+                          use_halo, axis=0)
+                for ax in (0, 1)
             )
         else:
-            p2_y = jnp.full((h_loc, W), jnp.asarray(pen(sgm_cfg.p2), pdt))
+            p2_y = jnp.full((vol.shape[0], W), pens["p2"], map_dtype)
             p2_x = p2_y
-
-        p1 = pen(sgm_cfg.p1)
-        total = _relay_sweep_pallas(vol, p2_y, p1, False, n_tile, interpret)
-        total = total + _relay_sweep_pallas(vol, p2_y, p1, True, n_tile,
-                                            interpret)
-        # horizontal sweeps: rows are complete (W unsharded) — local kernels
-        vol_t = jnp.transpose(vol, (2, 1, 0))
-        p2_x_t = jnp.transpose(p2_x, (1, 0))
-        horiz = _sweep_hdw(vol_t, p2_x_t, p1, False, False, interpret)
-        horiz = _sweep_hdw(vol_t, p2_x_t, p1, True, False, interpret,
-                           acc=horiz)
-        total = transpose_add_hdw(total, horiz, interpret)
-
-        from stereovisionarray_tpu.ops.extract_pallas import (
-            extract_disparity_hdw as _extract,
+        agg = _sgm_aggregate_exact(
+            vol.astype(jnp.float32), p2_y.astype(jnp.float32)[..., None],
+            p2_x.astype(jnp.float32)[..., None], pens["p1"], path_chunks[0],
+            n_tile,
         )
-
-        res = _extract(
-            total,
-            subpixel=sgm_cfg.subpixel,
-            uniqueness=sgm_cfg.uniqueness if sgm_cfg.uniqueness > 0 else 0.0,
-            lr_max_diff=sgm_cfg.lr_max_diff if sgm_cfg.lr_max_diff > 0 else 0.0,
-            interpret=interpret,
-        )
-        return res.disparity, res.valid, res.cost, res.confidence
-
-    def _one_pair_pallas(l_ext, r_ext, disp_idx) -> tuple:
-        """Fast path: (h_ext, D, W) int16 volume, fused sweep kernels, one-
-        pass extraction — the same kernels as the single-chip pipeline."""
-        pen = (lambda v: round(v * pen_scale)) if integer_costs else (lambda v: v)
-        vol = fused_cost_volume(
-            l_ext,
-            r_ext,
-            d_local,
-            census_window=cost_cfg.census_window,
-            bt_weight=cost_cfg.bt_weight,
-            bt_clip=cost_cfg.bt_clip,
-            dtype=dtype,
-            d_offset=disp_idx * d_local,
-            layout="hdw",
-        )
-        if n_disp > 1:
-            vol = lax.all_gather(vol, AXIS_DISP, axis=1, tiled=True)  # D axis
-        vol = mask_out_of_image(vol, use_halo, AXIS_TILE, axis=0, fill_value=_OOB_COST)
-
-        sweep_kwargs = dict(
-            p1=pen(sgm_cfg.p1),
-            p2=pen(sgm_cfg.p2),
-            num_paths=sgm_cfg.num_paths,
-            image=l_ext,
-            adaptive_p2=sgm_cfg.adaptive_p2,
-            p2_min=pen(sgm_cfg.p2_min),
-            interpret=interpret,
-        )
-        if n_disp == 1:
-            # undivided disparity axis: the same fully-fused program as the
-            # single-chip fast path (extraction inside the final reverse
-            # horizontal sweep — the aggregated volume never touches HBM);
-            # bit-identical to aggregate + extract for integer costs
-            from stereovisionarray_tpu.ops.sgm_pallas import (
-                sgm_extract_fused_wdh,
-            )
-
-            maps = sgm_extract_fused_wdh(
-                vol,
-                None,
-                subpixel=sgm_cfg.subpixel,
-                uniqueness=sgm_cfg.uniqueness if sgm_cfg.uniqueness > 0 else 0.0,
-                lr_max_diff=sgm_cfg.lr_max_diff if sgm_cfg.lr_max_diff > 0 else 0.0,
-                **sweep_kwargs,
-            )
-            # TwoViewOutput contract: INVALID_DISPARITY where rejected (the
-            # unfused extract_disparity_hdw applied this fill internally)
-            from stereovisionarray_tpu.ops.wta import INVALID_DISPARITY
-
-            disp = jnp.where(maps.valid, maps.disparity, INVALID_DISPARITY)
-            from stereovisionarray_tpu.ops.confidence import pkrn_confidence
-
-            conf = pkrn_confidence(maps.cost, maps.second, maps.valid)
-            return disp, maps.valid, maps.cost, conf
-
-        branches = [
-            functools.partial(
-                sgm_aggregate_pallas_sweeps, sweeps=chunk, **sweep_kwargs
-            )
-            for chunk in sweep_chunks
-        ]
-        agg = lax.psum(lax.switch(disp_idx, branches, vol), AXIS_DISP)
-
-        res = extract_disparity_hdw(
-            agg,
-            subpixel=sgm_cfg.subpixel,
-            uniqueness=sgm_cfg.uniqueness if sgm_cfg.uniqueness > 0 else 0.0,
-            lr_max_diff=sgm_cfg.lr_max_diff if sgm_cfg.lr_max_diff > 0 else 0.0,
-            interpret=interpret,
-        )
-        return res.disparity, res.valid, res.cost, res.confidence
+        if integer:
+            agg = agg.astype(jnp.int32)
+        return _extract(cost_units(agg, dtype))
 
     def _one_pair(l_ext: jnp.ndarray, r_ext: jnp.ndarray, disp_idx) -> tuple:
         """Pipeline on one halo-extended (h_ext, W) pair; disp_idx traced."""
@@ -490,22 +268,18 @@ def _two_view_program(
             vol = lax.all_gather(vol, AXIS_DISP, axis=-1, tiled=True)
         vol = mask_out_of_image(vol, use_halo, AXIS_TILE, axis=0, fill_value=_OOB_COST)
 
-        sgm_kwargs = dict(
-            p1=sgm_cfg.p1,
-            p2=sgm_cfg.p2,
-            image=l_ext,
-            adaptive_p2=sgm_cfg.adaptive_p2,
-            p2_min=sgm_cfg.p2_min,
-        )
+        branches = [
+            functools.partial(aggregate_costs, image=l_ext, sgm_cfg=sgm_cfg,
+                              path_ids=chunk, backend=resolved)
+            for chunk in path_chunks
+        ]
         if n_disp == 1:
-            agg = sgm_aggregate_paths(vol, path_ids=path_chunks[0], **sgm_kwargs)
+            agg = branches[0](vol)
         else:
-            branches = [
-                functools.partial(sgm_aggregate_paths, path_ids=chunk, **sgm_kwargs)
-                for chunk in path_chunks
-            ]
             agg = lax.psum(lax.switch(disp_idx, branches, vol), AXIS_DISP)
+        return _extract(cost_units(agg, dtype))
 
+    def _extract(agg: jnp.ndarray) -> tuple:
         vol_right = right_from_left_volume(agg) if sgm_cfg.lr_max_diff > 0 else None
         res = disparity_from_volume(
             agg,
@@ -517,14 +291,7 @@ def _two_view_program(
         )
         return res.disparity, res.valid, res.cost, res.confidence
 
-    if exact_tiles and use_pallas:
-        one_pair = _one_pair_pallas_exact
-    elif exact_tiles:
-        one_pair = _one_pair_exact
-    elif use_pallas:
-        one_pair = _one_pair_pallas
-    else:
-        one_pair = _one_pair
+    one_pair = _one_pair_exact if exact_tiles else _one_pair
 
     def _local(l: jnp.ndarray, r: jnp.ndarray) -> tuple:
         # l, r: (b_local, h_local, W)
@@ -548,8 +315,7 @@ def _two_view_program(
         out_specs=(spec_in, spec_in, spec_in, spec_in),
         check_vma=False,
     )
-    img_dtype = jnp.float32 if integer_costs else dtype
-    return jax.jit(sharded), img_dtype, spec_in
+    return jax.jit(sharded), spec_in
 
 
 def sharded_two_view_disparity(
@@ -580,7 +346,8 @@ def sharded_two_view_disparity(
       "exact": relay the (W, D) wavefront between shards via a sequential
               ppermute chain (:func:`_relay_scan`) — bit-identical to the
               unsharded result at ANY tile count, at the cost of the
-              vertical sweeps serializing across shards (xla backend only).
+              vertical sweeps serializing across shards (XLA scans on
+              every backend).
 
     The compiled program is cached per (mesh, configs, shapes) — repeat
     calls skip tracing entirely (:func:`_two_view_program`).
@@ -591,11 +358,11 @@ def sharded_two_view_disparity(
     if tile_mode not in ("halo", "exact"):
         raise ValueError(f"unknown tile_mode {tile_mode!r}")
     resolved = _resolve_parallel_backend(backend)
-    program, img_dtype, spec_in = _two_view_program(
+    program, spec_in = _two_view_program(
         mesh, cost_cfg, sgm_cfg, int(halo), resolved, tile_mode, B, H, W
     )
-    left = jax.device_put(left.astype(img_dtype), NamedSharding(mesh, spec_in))
-    right = jax.device_put(right.astype(img_dtype), NamedSharding(mesh, spec_in))
+    left = jax.device_put(left.astype(jnp.float32), NamedSharding(mesh, spec_in))
+    right = jax.device_put(right.astype(jnp.float32), NamedSharding(mesh, spec_in))
     disp, valid, cost, conf = program(left, right)
     if mask is not None:
         valid = valid & mask
@@ -633,8 +400,7 @@ def sharded_wta(
         cs = lax.all_gather(c_loc, AXIS_DISP)  # (n_disp, h, w) in d order
         ds = lax.all_gather(d_glob, AXIS_DISP)
         k = jnp.argmin(cs, axis=0)
-        # one-hot select over the tiny shard axis — take_along_axis is a
-        # serialized per-pixel gather on TPU (see ops/wta._value_at)
+        # one-hot select over the tiny shard axis
         sel = jax.lax.broadcasted_iota(jnp.int32, cs.shape, 0) == k[None]
         best_c = jnp.sum(jnp.where(sel, cs, 0), axis=0)
         best_d = jnp.sum(jnp.where(sel, ds, 0), axis=0)

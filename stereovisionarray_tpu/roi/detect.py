@@ -4,7 +4,7 @@ The reference needs dlib's HOG face detector + a 100 MB landmark model just
 to build a compute-gating mask (``/root/reference/src/dlibFaceSelect.cpp:19-25``)
 — host-only, deserialized from disk on every call. For the *gating* role
 (restrict depth estimation to the subject) a foreground blob estimate is
-sufficient and runs as a handful of fused VPU ops on device:
+sufficient and runs as a handful of fused elementwise ops on device:
 
   smooth -> threshold at the Otsu point -> intensity-weighted centroid and
   second moments of the foreground -> ellipse with the reference's

@@ -3,7 +3,7 @@ against a procedural average-face template, emitting dlib-layout landmarks.
 
 Reference parity (``/root/reference/src/dlibFaceSelect.cpp:19-36``): the
 reference runs dlib's HOG detector + a 100 MB 68-landmark model on the host
-to gate compute to the subject's face. Here the detector is a bank of MXU/VPU
+to gate compute to the subject's face. Here the detector is a bank of array
 ops: an image pyramid, one conv per scale against a zero-mean face template
 (eyes/brows/mouth/nose blobs inside an oval), variance-normalized to true
 NCC, global peak -> face box -> a canonical 68-point landmark layout scaled
@@ -25,6 +25,10 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+# float32 matmuls pinned to full precision: a GPU may otherwise run them in
+# TF32 (about 3 decimal digits)
+_HI = jax.lax.Precision.HIGHEST
 
 __all__ = [
     "FaceDetection",
@@ -375,8 +379,8 @@ def _fit_canonical(patch: jnp.ndarray):
     X = jnp.concatenate([src, jnp.ones((K, 1), jnp.float32)], axis=1)
     lam = 4.0  # canonical px^2 of ridge
     A0 = jnp.asarray([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], jnp.float32)
-    G = X.T @ X + lam * jnp.eye(3, dtype=jnp.float32)
-    B = X.T @ dst + lam * A0.T  # (3, 2)
+    G = jnp.matmul(X.T, X, precision=_HI) + lam * jnp.eye(3, dtype=jnp.float32)
+    B = jnp.matmul(X.T, dst, precision=_HI) + lam * A0.T  # (3, 2)
     A = jnp.linalg.solve(G, B).T  # (2, 3)
     return A, score
 
@@ -408,7 +412,8 @@ def fit_landmarks(
     lm_c = jnp.stack([lm[:, 0] * (2 * _TW - 1) + _BX,
                       lm[:, 1] * (2 * _TH - 1) + _BY], axis=-1)
     ones = jnp.ones((lm_c.shape[0], 1), jnp.float32)
-    fit_c = jnp.concatenate([lm_c, ones], axis=1) @ A.T  # (68, 2)
+    fit_c = jnp.matmul(jnp.concatenate([lm_c, ones], axis=1), A.T,
+                       precision=_HI)  # (68, 2)
 
     # jaw snap: move each jaw point 0-16 along its outward normal (from the
     # affine-updated face center) toward the strongest NEARBY gradient —
@@ -417,10 +422,10 @@ def fit_landmarks(
     # twice): per-point argmaxes are noisy and the jaw is a smooth curve
     gy, gx = jnp.gradient(patch)
     grad = jnp.sqrt(gx * gx + gy * gy)
-    center = jnp.concatenate(
+    center = jnp.matmul(jnp.concatenate(
         [jnp.asarray([[0.5 * (2 * _TW - 1) + _BX, 0.52 * (2 * _TH - 1) + _BY]]),
          ones[:1]], axis=1
-    ) @ A.T  # (1, 2)
+    ), A.T, precision=_HI)  # (1, 2)
     jaw = fit_c[:17]
     nrm = jaw - center
     nrm = nrm / jnp.maximum(jnp.linalg.norm(nrm, axis=-1, keepdims=True), 1e-6)

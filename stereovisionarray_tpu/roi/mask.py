@@ -4,7 +4,7 @@ Reference equivalents:
  - ``getFaceMask``: ``cv::fillConvexPoly`` over jaw landmarks 0-16 plus brow
    landmarks 24 and 19 (``/root/reference/src/dlibFaceSelect.cpp:29-36``)
    -> :func:`face_mask_from_landmarks` (half-plane intersection test — the
-   TPU-shaped polygon fill: one sign test per edge per pixel, no scanline).
+   whole-array polygon fill: one sign test per edge per pixel, no scanline).
  - ``getFaceCircle``: ellipse from landmarks 0/16 (face width) and 8 (chin)
    with empirical factors 0.75 / 0.25 / 1.7
    (``/root/reference/src/dlibFaceSelect.cpp:50-62``)

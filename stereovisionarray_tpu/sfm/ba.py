@@ -4,7 +4,7 @@ solved matrix-free by preconditioned conjugate gradients.
 Replaces the reference's hard-coded pose grid
 (``/root/reference/src/CameraStereoVision.cpp:33-39``) with estimated poses.
 
-TPU-native structure (SURVEY.md §7 step 8, "hard parts"):
+Device-program structure (SURVEY.md §7 step 8, "hard parts"):
  - the sparse landmark-camera normal equations are never materialized —
    per-observation 2x6 / 2x3 Jacobian blocks are contracted on the fly
    (einsum batched over all M observations), camera/point blocks are built

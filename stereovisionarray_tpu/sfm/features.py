@@ -4,10 +4,10 @@ The reference has no feature pipeline at all (poses are hard-coded constants,
 ``/root/reference/src/CameraStereoVision.cpp:33-39``); this provides the
 measurement front-end for array calibration (SURVEY.md §7 step 8).
 
-TPU shape discipline: every image yields exactly ``max_features`` corners
+Static-shape discipline: every image yields exactly ``max_features`` corners
 (top-k by NMS'd Harris response) with a validity mask — no dynamic shapes, so
 detection vmaps over the 25-view array and the descriptor distance matrix is
-one MXU matmul.
+one matmul.
 """
 
 from __future__ import annotations

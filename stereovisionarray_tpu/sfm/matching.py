@@ -1,6 +1,6 @@
 """Descriptor matching: mutual nearest neighbour + Lowe ratio test.
 
-One (F_a x F_b) distance matrix per view pair — a single MXU matmul on
+One (F_a x F_b) distance matrix per view pair — a single matmul on
 L2-normalized descriptors (dist^2 = 2 - 2 a.b) — fixed shapes, vmappable
 over the pair list from ``geometry.topology.camera_pairs``.
 """

@@ -9,9 +9,9 @@ refine absolute poses X_i minimizing
 
 Gauss-Newton with numeric-free analytic structure is overkill here (the
 problem is tiny: N <= dozens of cameras, E <= hundreds of edges), so the
-TPU-friendly choice is plain GN with jax.grad/jacfwd-free *autodiff residual
+simple choice is plain GN with jax.grad/jacfwd-free *autodiff residual
 stacking*: residuals are a fixed (E, 6) tensor, the update solves one dense
-(6N x 6N) normal system via Cholesky — microseconds on the MXU and fully
+(6N x 6N) normal system via Cholesky — tiny and fully
 jittable. Camera 0 is gauge-fixed.
 """
 
@@ -96,13 +96,13 @@ def pose_graph_optimize(
         J = jax.jacfwd(perturbed_residuals)(zero)  # (E, 6, N, 6)
         Jf = J.reshape(-1, n * 6)
         rf = res0.reshape(-1)
-        JtJ = Jf.T @ Jf
+        JtJ = jnp.matmul(Jf.T, Jf, precision=_HI)
         # LM damping scaled to the Hessian diagonal (scale-invariant)
         diag = jnp.diag(JtJ)
         H = JtJ + lam * jnp.diag(jnp.maximum(diag, 1e-12)) + 1e-9 * jnp.eye(
             n * 6, dtype=R.dtype
         )
-        g = Jf.T @ rf
+        g = jnp.matmul(Jf.T, rf, precision=_HI)
         # gauge: freeze camera 0 by pinning its block to identity
         mask = jnp.arange(n * 6) < 6
         H = jnp.where(mask[:, None] | mask[None, :], 0.0, H)

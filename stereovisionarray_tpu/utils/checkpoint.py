@@ -7,6 +7,9 @@ landmark clouds, per-keyframe depth maps, BA state — plus the EngineConfig
 that produced them. Orbax records sharding metadata, so a checkpoint written
 from a sharded run restores onto a different mesh shape (the re-shardable
 resume path of SURVEY.md §5 "failure detection / elastic recovery").
+
+Orbax is imported inside the functions that use it, so the package (and
+the CLI) import without it.
 """
 
 from __future__ import annotations
@@ -17,7 +20,6 @@ from typing import Any, Optional, Tuple
 
 import jax
 import numpy as np
-import orbax.checkpoint as ocp
 
 from stereovisionarray_tpu.config import EngineConfig
 
@@ -33,6 +35,8 @@ def save_checkpoint(
     """Write `state` (any pytree of arrays) and optionally the config.
 
     path: directory (created if needed; absolute path required by orbax)."""
+    import orbax.checkpoint as ocp
+
     path = os.path.abspath(path)
     with ocp.StandardCheckpointer() as ckptr:
         ckptr.save(os.path.join(path, "state"), state, force=force)
@@ -47,6 +51,8 @@ def load_checkpoint(
     """Restore (state, config). ``target`` (a pytree of like-shaped arrays
     or ShapeDtypeStructs, possibly with shardings) guides structure/placement;
     without it, arrays come back as numpy."""
+    import orbax.checkpoint as ocp
+
     path = os.path.abspath(path)
     with ocp.StandardCheckpointer() as ckptr:
         if target is not None:

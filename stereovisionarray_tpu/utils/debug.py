@@ -2,7 +2,7 @@
 sanitizers").
 
 The reference is single-threaded, so its hazards are uninitialized memory
-and div-by-zero (§2.3) rather than races. The TPU analogues are:
+and div-by-zero (§2.3) rather than races. The device-program analogues are:
 
 * silent NaN/Inf propagation through fused kernels — :func:`checked` wraps a
   jittable fn with `checkify` so the first NaN/OOB fires a Python error with

@@ -3,7 +3,7 @@
 The reference has no failure story at all — it crashes on the first bad
 input (``faces[0]`` with no detection, ``/root/reference/src/dlibFaceSelect.cpp:25``;
 divide-by-zero depth, ``/root/reference/src/CameraStereoVision.cpp:100``).
-A multi-host TPU engine needs three pieces, built here:
+A multi-host engine needs three pieces, built here:
 
 :class:`Heartbeat`
     Liveness watchdog: workers `beat()` from their loop; a monitor thread

@@ -1,4 +1,4 @@
-"""End-to-end array pipeline (models/array_pipeline.py) — the TPU-native
+"""End-to-end array pipeline (models/array_pipeline.py) — the reference's
 `main()` (``/root/reference/src/CameraStereoVision.cpp:10-123``)."""
 
 import numpy as np

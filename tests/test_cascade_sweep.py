@@ -168,9 +168,9 @@ class TestCascadeSweep:
         jax.jit(probe)(rig.t)
 
     def test_backend_interpret_matches_xla(self):
-        """Pallas-kernel fine pass (interpret mode) vs the XLA oracle on a
-        small config: winners agree modulo cost quantization (the
-        test_plane_sweep backend-consistency pattern)."""
+        """Triton SGM kernel (interpret mode) in both cascade passes vs the
+        XLA scans on a small config: the same per-path float32 sums in the
+        same order, so the winners agree exactly."""
         res = (48, 64)
         rig = reference_rig(
             rows=3, cols=3, spacing=0.05, origin=(-0.05, -0.05), resolution=res
@@ -188,46 +188,9 @@ class TestCascadeSweep:
             )
 
         a, b = run("xla"), run("pallas_interpret")
-        va, vb = np.asarray(a.valid), np.asarray(b.valid)
-        assert (va == vb).all()
-        both = va & vb & _inner(va.shape)
-        dk = np.abs(np.asarray(b.plane)[both] - np.asarray(a.plane)[both])
-        assert np.median(dk) < 0.1
-        # looser than the flat sweep's backend test: the cascade's fine
-        # pass feeds BILINEAR pre-warped (non-integer) sources to the
-        # kernel, whose bf16 hi/lo split then carries 2^-16 residuals that
-        # flip census bits at near-ties — and with sub-S top-k now
-        # IN-kernel, a flipped bit can alter which views fuse. Tiny
-        # ambiguous 48x64 scene; production-scale accuracy parity is
-        # pinned on-device by check_tpu_parity's cascade check.
-        assert (dk <= 1.0).mean() > 0.90
-        assert (dk <= 2.0).mean() > 0.95
-
-
-def test_sources_8bit_forced_off_inside_cascade():
-    """cfg.sources_8bit asserts integer [0,255] sources, which is false for
-    BOTH cascade passes (area-downsampled coarse, bilinear pre-warped fine)
-    — the cascade must force the exact hi/lo-split path, so setting the
-    flag changes nothing (a leak would alter the Pallas warp arms)."""
-    res = (48, 64)
-    rig = reference_rig(
-        rows=3, cols=3, spacing=0.05, origin=(-0.05, -0.05), resolution=res
-    )
-    imgs, _ = render_camera_array(rig, res)
-    imgs = jnp.asarray(np.round(np.asarray(imgs)))  # integer-valued inputs
-    cfg = dataclasses.replace(CFG, num_planes=32, fusion="mean")
-    bo, _ = cascade_static_params(rig, REF, SRC, cfg, 16)
-
-    def run(flag):
-        return cascade_plane_sweep_depth(
-            imgs, rig, REF, SRC, dataclasses.replace(cfg, sources_8bit=flag),
-            SGM, shift_pad=8, coarse_factor=2, fine_planes=16, band_step=8,
-            band_offsets=bo, backend="pallas_interpret",
-        )
-
-    a, b = run(False), run(True)
-    np.testing.assert_array_equal(np.asarray(a.plane), np.asarray(b.plane))
-    np.testing.assert_array_equal(np.asarray(a.cost), np.asarray(b.cost))
+        np.testing.assert_array_equal(np.asarray(a.valid), np.asarray(b.valid))
+        np.testing.assert_allclose(np.asarray(b.plane), np.asarray(a.plane),
+                                   rtol=1e-6, atol=1e-5)
 
 
 def test_array_pipeline_cascade_falls_back_when_range_fits_window():

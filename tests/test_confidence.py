@@ -49,43 +49,21 @@ class TestPkrnMath:
 
 
 class TestKernelVsOracle:
-    def test_extract_maps_second_matches_oracle(self):
-        """The Pallas extraction kernel's exported second-best equals the
-        one-hot XLA oracle on the same volume (interpret mode)."""
-        from stereovisionarray_tpu.ops.extract_pallas import extract_maps_hdw
-
-        r = np.random.default_rng(1)
-        vol_hwd = jnp.asarray(r.integers(0, 2000, (16, 128, 16)).astype(np.int16))
-        vol_hdw = jnp.transpose(vol_hwd, (0, 2, 1))
-        maps = extract_maps_hdw(vol_hdw, subpixel=True, interpret=True)
-        d_int, cost = winner_take_all(vol_hwd.astype(jnp.int32))
-        sec = second_best_cost(vol_hwd.astype(jnp.int32), d_int)
-        np.testing.assert_array_equal(np.asarray(maps.second),
-                                      np.asarray(sec).astype(np.float32))
-        np.testing.assert_array_equal(np.asarray(maps.cost),
-                                      np.asarray(cost).astype(np.float32))
-
     def test_two_view_backends_agree(self):
-        """XLA (float costs) and Pallas (int16 fixed point) produce the same
-        confidence field up to quantization — PKRN is cost-scale invariant."""
+        """The XLA scans and the Triton kernel (interpret mode) compute the
+        same int16 fixed-point sums, so the confidence fields are equal."""
         r = np.random.default_rng(2)
         base = r.uniform(0, 255, (32, 80)).astype(np.float32)
         left = jnp.asarray(base[:, :64])
         right = jnp.asarray(base[:, 8:72])
-        ccfg = CostConfig(num_disparities=16, census_window=(5, 5))
+        ccfg = CostConfig(num_disparities=16, census_window=(5, 5), dtype="int16")
         scfg = SGMConfig(num_paths=4, uniqueness=0.0, lr_max_diff=0.0)
         a = two_view_disparity(left, right, ccfg, scfg, backend="xla")
-        b = two_view_disparity(
-            left, right,
-            CostConfig(num_disparities=16, census_window=(5, 5), dtype="int16"),
-            scfg, backend="pallas_interpret")
+        b = two_view_disparity(left, right, ccfg, scfg, backend="pallas_interpret")
         assert a.confidence is not None and b.confidence is not None
-        ca, cb = np.asarray(a.confidence), np.asarray(b.confidence)
-        inner = np.s_[4:-4, 20:-4]
-        both = np.asarray(a.valid)[inner] & np.asarray(b.valid)[inner]
-        diff = np.abs(ca[inner][both] - cb[inner][both])
-        assert np.median(diff) < 0.02
-        assert (diff < 0.1).mean() > 0.95
+        np.testing.assert_array_equal(np.asarray(a.valid), np.asarray(b.valid))
+        np.testing.assert_array_equal(np.asarray(a.confidence),
+                                      np.asarray(b.confidence))
 
 
 class TestBehaviour:

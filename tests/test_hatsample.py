@@ -1,6 +1,7 @@
-"""hat_sample kernel tests: interpret-mode vs numpy oracle.
+"""hat_sample tests: the bilinear sampler vs a numpy oracle of the
+hat-weighted tap sum.
 
-The kernel is the smooth-cascade residual warp + decode sampler
+The sampler is the smooth-cascade residual warp + decode sampler
 (models/cascade.py); bilinear semantics, edge replication, aux-table
 sampling, and clamped fields must all match the straightforward oracle.
 """
@@ -9,11 +10,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereovisionarray_tpu.ops.hatsample import hat_sample
+from stereovisionarray_tpu.ops.hatsample import hat_sample, hat_sample_reference
 
 
 def oracle(values, t, k0, k1, aux=None):
     h, w = values.shape
+    t = np.clip(t, k0, k1)  # the contract clamps t to [k0, k1]
     out = np.zeros((h, w), np.float32)
     aout = np.zeros((h, w), np.float32)
     for k in range(k0, k1 + 1):
@@ -25,14 +27,13 @@ def oracle(values, t, k0, k1, aux=None):
     return (out, aout) if aux is not None else out
 
 
-@pytest.mark.parametrize("k0,k1", [(-7, 7), (0, 15), (-12, 3)])
+@pytest.mark.parametrize("k0,k1", [(-7, 7), (0, 15), (-12, 3), (-9, -2)])
 def test_matches_oracle(k0, k1):
     rng = np.random.default_rng(3)
     h, w = 24, 160
     vals = rng.uniform(0, 255, (h, w)).astype(np.float32)
     t = rng.uniform(k0 - 1.5, k1 + 1.5, (h, w)).astype(np.float32)
-    got = np.asarray(hat_sample(jnp.asarray(vals), jnp.asarray(t), k0, k1,
-                                interpret=True))
+    got = np.asarray(hat_sample(jnp.asarray(vals), jnp.asarray(t), k0, k1))
     np.testing.assert_allclose(got, oracle(vals, t, k0, k1), rtol=1e-5,
                                atol=1e-3)
 
@@ -44,7 +45,7 @@ def test_aux_and_hat_identity():
     aux = rng.uniform(0, 50, (w,)).astype(np.float32)
     t = rng.uniform(-R, R, (h, w)).astype(np.float32)
     got, gaux = hat_sample(jnp.asarray(vals), jnp.asarray(t), -R, R,
-                           aux=jnp.asarray(aux), interpret=True)
+                           aux=jnp.asarray(aux))
     ref, raux = oracle(vals, t, -R, R, aux)
     np.testing.assert_allclose(np.asarray(got), ref, rtol=1e-5, atol=1e-3)
     np.testing.assert_allclose(np.asarray(gaux), raux, rtol=1e-5, atol=1e-3)
@@ -53,8 +54,7 @@ def test_aux_and_hat_identity():
     kidx = np.arange(w, dtype=np.float32)
     got_t = np.asarray(hat_sample(jnp.asarray(np.zeros((h, w), np.float32)),
                                   jnp.asarray(t), -R, R,
-                                  aux=jnp.asarray(np.zeros(w, np.float32)),
-                                  interpret=True))[0]
+                                  aux=jnp.asarray(np.zeros(w, np.float32))))[0]
     del got_t, kidx  # identity checked via bilinear: t recovered below
     ident, _ = oracle(np.broadcast_to(np.arange(w, dtype=np.float32)[None, :],
                                       (h, w)).copy(), t, -R, R, aux)
@@ -71,8 +71,7 @@ def test_bilinear_semantics():
     h, w, R = 8, 64, 6
     vals = rng.uniform(0, 1, (h, w)).astype(np.float32)
     t = rng.uniform(-R + 0.01, R - 0.01, (h, w)).astype(np.float32)
-    got = np.asarray(hat_sample(jnp.asarray(vals), jnp.asarray(t), -R, R,
-                                interpret=True))
+    got = np.asarray(hat_sample(jnp.asarray(vals), jnp.asarray(t), -R, R))
     x = np.arange(w)[None, :]
     pos = x - t
     p0 = np.floor(pos).astype(np.int64)
@@ -87,12 +86,26 @@ def test_bilinear_semantics():
 
 
 def test_ragged_rows():
-    """H not a multiple of block_rows: the last block is boundary-padded."""
+    """Odd shapes (H and W not powers of two)."""
     rng = np.random.default_rng(13)
     h, w = 21, 130
     vals = rng.uniform(0, 1, (h, w)).astype(np.float32)
     t = rng.uniform(-3, 3, (h, w)).astype(np.float32)
-    got = np.asarray(hat_sample(jnp.asarray(vals), jnp.asarray(t), -4, 4,
-                                interpret=True))
+    got = np.asarray(hat_sample(jnp.asarray(vals), jnp.asarray(t), -4, 4))
     np.testing.assert_allclose(got, oracle(vals, t, -4, 4), rtol=1e-5,
                                atol=1e-3)
+
+
+@pytest.mark.parametrize("k0,k1", [(-7, 7), (0, 15), (-9, -2)])
+def test_reference_matches_oracle(k0, k1):
+    """hat_sample_reference (the every-tap sum the sampler is compared with
+    on the card) is the numpy oracle, aux included."""
+    rng = np.random.default_rng(17)
+    h, w = 12, 70
+    vals = rng.uniform(0, 255, (h, w)).astype(np.float32)
+    aux = rng.uniform(0, 50, (w,)).astype(np.float32)
+    t = rng.uniform(k0 - 1.5, k1 + 1.5, (h, w)).astype(np.float32)
+    got, gaux = hat_sample_reference(vals, t, k0, k1, aux=aux)
+    ref, raux = oracle(vals, t, k0, k1, aux)
+    np.testing.assert_allclose(np.asarray(got), ref, rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(np.asarray(gaux), raux, rtol=1e-5, atol=1e-3)

@@ -1,4 +1,4 @@
-"""Multi-view photoconsistency refinement (ops/refine.py) — the TPU-native
+"""Multi-view photoconsistency refinement (ops/refine.py) — the vectorized
 `improveWithDisparity` (``/root/reference/src/functions.cpp:11-52``)."""
 
 import numpy as np
